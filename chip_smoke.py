@@ -9,21 +9,26 @@ Phases (any failed check exits non-zero):
    convolutions;
 2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (timed);
 3. hold each kernel against its plain PyTorch version on the card, at
-   granite-3-2b's shapes, head dims 16 and 128, ragged lengths, kv_len 1 and
-   S, float32 and bfloat16; time kernel, plain version and the PyTorch
-   yardstick (``F.rms_norm``, ``F.scaled_dot_product_attention``, timed only,
-   never called by the port) at the main path's shapes;
+   granite-3-2b's and mamba2-130m's shapes, head dims 16 and 128, ragged
+   lengths, kv_len 1 and S, S < chunk and S = 1, float32 and bfloat16; time
+   kernel, plain version and the PyTorch yardstick (``F.rms_norm``,
+   ``F.scaled_dot_product_attention``, timed only, never called by the port;
+   no single PyTorch call computes the SSD scan) at the main paths' shapes;
 4. a reduced granite-3-2b in float32 through the kernels on the card against
    the plain versions on the CPU (the CPU tests hold those against the JAX
    package), and prefill + decode against forward;
-5. the main path at full width: a port ``DestinationExecutor`` serving
+4b. the same for a reduced mamba2-130m;
+5. the first main path at full width: a port ``DestinationExecutor`` serving
    ``make_model_library(granite-3-2b)`` behind the port's ``TCPServer`` on
    127.0.0.1, driven by a port ``HostRuntime`` over ``TCPChannel``: ping,
    put_model of the full bf16 weights (made on the card from ``--seed``),
    prefill (B 2, S 128), 8 decodes and a score.  The launch counters are
    zeroed just before and read just after, and must match the model's
    structure; the prefill logits are compared with the same call through the
-   plain versions.
+   plain versions;
+6. the second main path, the same way: full-width mamba2-130m (24 layers,
+   d_model 768), prefill (B 2, S 1024: four chunks of 256), 8 decodes and a
+   score, through the SSD-scan and rmsnorm kernels.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -46,6 +51,9 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 HBM_BYTES_PER_S = 3.35e12             # H100 SXM device memory
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}   # dense, no sparsity
 MAIN_B, MAIN_S, CACHE_LEN, N_DECODE = 2, 128, 256, 8
+SSM_S = 1024                          # mamba2-130m prompt: four chunks of 256
+# mamba2-130m's scan: (B, S, H, P, G, N, chunk)
+SSD_MAIN = (MAIN_B, SSM_S, 24, 64, 1, 128, 256)
 
 
 class CheckFailed(AssertionError):
@@ -168,12 +176,62 @@ def kernel_checks(gen, dev) -> dict:
             if (K, G, S, qdt) == (8, 4, CACHE_LEN, bf16):
                 main_err["decode_attention"] = max(main_err.get("decode_attention", 0.0), e)
 
+    main_err["ssd_scan"] = ssd_checks(gen, dev)
     return main_err
 
 
+def ssd_inputs(gen, dev, B, S, H, P, G, N, dtype):
+    """x, dt, A, B, C in the distribution of ``tests/test_kernels.py``'s SSD
+    cases; x, B and C are views of one (B,S,H*P+2GN) tensor, the layout in
+    which the model hands them over (its conv output)."""
+    big = torch.randn(B, S, H * P + 2 * G * N, generator=gen, device=dev)
+    big[..., H * P:] *= 0.3
+    big = big.to(dtype)
+    x = big[..., :H * P].unflatten(-1, (H, P))
+    Bm = big[..., H * P:H * P + G * N].unflatten(-1, (G, N))
+    Cm = big[..., H * P + G * N:].unflatten(-1, (G, N))
+    dt = F.softplus(torch.randn(B, S, H, generator=gen, device=dev))
+    A = -torch.exp(torch.randn(H, generator=gen, device=dev) * 0.5)
+    return x, dt, A, Bm, Cm
+
+
+def ssd_checks(gen, dev) -> float:
+    """ssd_scan against its plain version (the chunked algorithm) -> the
+    main shape's bf16 max abs error on y.  Tolerances: y within
+    2e-4 * (max|y| + 1) and the fp32 state within 2e-4 * (max|state| + 1),
+    the bound ``tests/test_kernels.py`` holds the Pallas kernel to (fp32
+    sums in another order, over up to 256-step decays); in bf16, y also
+    within one output ulp (rtol 1e-2), since both round the same fp32 value
+    to bf16 and may land on neighbouring values."""
+    from repro_torch.kernels import ops
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    main = 0.0
+    for shape, dt_ in [(SSD_MAIN, bf16), (SSD_MAIN, f32),
+                       ((2, 512, 4, 64, 2, 128, 128), f32), ((1, 256, 2, 128, 1, 64, 256), f32),
+                       ((2, 300, 4, 64, 4, 32, 128), f32), ((1, 128, 8, 32, 2, 64, 64), f32),
+                       ((2, 37, 8, 16, 1, 16, 8), f32), ((2, 37, 8, 16, 1, 16, 8), bf16),
+                       ((1, 5, 2, 16, 1, 16, 8), f32), ((1, 1, 24, 64, 1, 128, 256), bf16)]:
+        B, S, H, P, G, N, L = shape
+        args = ssd_inputs(gen, dev, B, S, H, P, G, N, dt_)
+        y, st = ops.ssd_scan(*args, chunk=L)
+        yr, sr = ops.ssd_scan(*args, chunk=L, impl="ref")
+        torch.cuda.synchronize()
+        ey, es = max_err(y, yr), max_err(st, sr)
+        tol_y = 2e-4 * (yr.float().abs().max().item() + 1.0)
+        tol_s = 2e-4 * (sr.abs().max().item() + 1.0)
+        ok_y = (y.float() - yr.float()).abs() <= tol_y + (1e-2 if dt_ == bf16 else 0) * yr.float().abs()
+        check(bool(ok_y.all()) and es <= tol_s and y.dtype == dt_ and st.dtype == f32,
+              f"ssd_scan B{B} S{S} H{H} P{P} G{G} N{N} L{L} {dt_}: y max abs err {ey:.3e} "
+              f"(tol {tol_y:.3e}), state {es:.3e} (tol {tol_s:.3e})")
+        if shape == SSD_MAIN and dt_ == bf16:
+            main = ey
+    return main
+
+
 def kernel_times(gen, dev, main_err: dict) -> dict:
-    """Kernel, plain and yardstick times at the main path's shapes
-    (granite-3-2b, bf16), with each kernel's bound."""
+    """Kernel, plain and yardstick times at the main paths' shapes
+    (granite-3-2b and mamba2-130m, bf16), with each kernel's bound."""
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import rmsnorm as rk
 
@@ -212,11 +270,24 @@ def kernel_times(gen, dev, main_err: dict) -> dict:
         ms=time_ms(lambda: ops.decode_attention(qd, kc, vc, lens)),
         plain_ms=time_ms(lambda: ops.decode_attention(qd, kc, vc, lens, impl="ref")),
         library_ms=time_ms(lambda: sdpa_gqa(qdt, kct, vct)), bound_ms=b, bound_by=why)
+    B, S, H, P, G, N, L = SSD_MAIN
+    args = ssd_inputs(gen, dev, B, S, H, P, G, N, bf16)
+    x, dtt, A, Bm, Cm = args
+    nc = -(-S // L)
+    flops = 2 * B * nc * (G * L * L * N + H * (L * L * P + 2 * L * N * P))
+    b, why = bound_ms(B * S * (H * P + 2 * G * N) * 2 + nbytes(dtt, A)       # inputs read once
+                      + B * S * H * P * 2 + B * H * P * N * 4, flops, bf16)  # y, state written once
+    rows["ssd_scan"] = dict(
+        shape=f"x {tuple(x.shape)} B/C {tuple(Bm.shape)} bf16 (strided views), chunk {L}",
+        ms=time_ms(lambda: ops.ssd_scan(*args, chunk=L), iters=20),
+        plain_ms=time_ms(lambda: ops.ssd_scan(*args, chunk=L, impl="ref"), iters=20),
+        library_ms=None, bound_ms=b, bound_by=why)   # no single PyTorch call computes SSD
     ops.reset_launch_counts()        # timing launches are not the main path's
     for name, r in rows.items():
         r["max_abs_err"] = main_err[name]
+        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
         print(f"  {name} [{r['shape']}]: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-              f"yardstick {r['library_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms "
+              f"yardstick {lib}, bound {r['bound_ms']:.5f} ms "
               f"({r['bound_by']}), main-shape max abs err {r['max_abs_err']:.3e}", flush=True)
     return rows
 
@@ -225,14 +296,14 @@ def kernel_times(gen, dev, main_err: dict) -> dict:
 # phase 4: small model on the card against the plain versions on the CPU
 # ---------------------------------------------------------------------------
 
-def small_model_check(seed: int, dev) -> None:
+def small_model_check(phase: str, arch: str, seed: int, dev) -> None:
     from repro_torch.configs import get_arch, reduced
     from repro_torch.models import model as M
     from repro_torch.utils import tree_map
 
-    print("phase 4: reduced granite-3-2b (float32), kernels on the card vs plain on the CPU",
+    print(f"phase {phase}: reduced {arch} (float32), kernels on the card vs plain on the CPU",
           flush=True)
-    cfg = reduced(get_arch("granite-3-2b"))
+    cfg = reduced(get_arch(arch))
     p_cpu = M.init_params(cfg, seed, device="cpu")
     p_gpu = tree_map(lambda t: t.to(dev), p_cpu)
     toks = torch.from_numpy(np.random.default_rng(seed).integers(0, cfg.vocab_size, (2, 13)))
@@ -258,10 +329,24 @@ def small_model_check(seed: int, dev) -> None:
 
 
 # ---------------------------------------------------------------------------
-# phase 5: the main path at full width
+# phases 5 and 6: the main paths at full width
 # ---------------------------------------------------------------------------
 
-def main_path(seed: int, dev, profile: bool = False) -> dict:
+def expected_counts(cfg) -> dict:
+    """Kernel launches of one prefill, N_DECODE decodes and one score: an
+    rmsnorm per mixer norm, per FFN norm (dense) or gated norm (SSM), and
+    the final norm; attention or the SSD scan once per layer per prefill
+    or score; decode attention once per layer per step (an SSM decode step
+    is one plain ``ssd_step``)."""
+    L, n_fwd = cfg.num_layers, 1 + N_DECODE + 1
+    if cfg.family == "ssm":
+        return {"rmsnorm": (2 * L + 1) * n_fwd, "flash_attention": 0, "decode_attention": 0,
+                "ssd_scan": 2 * L}
+    return {"rmsnorm": (2 * L + 1) * n_fwd, "flash_attention": 2 * L,
+            "decode_attention": L * N_DECODE, "ssd_scan": 0}
+
+
+def main_path(phase: str, arch: str, seq: int, seed: int, dev, profile: bool = False) -> dict:
     from repro_torch.configs import get_arch
     from repro_torch.core.cache import model_fingerprint
     from repro_torch.core.executor import DestinationExecutor, HostRuntime
@@ -271,11 +356,14 @@ def main_path(seed: int, dev, profile: bool = False) -> dict:
     from repro_torch.models import model as M
     from repro_torch.utils import to_numpy_tree, tree_leaves
 
-    cfg = get_arch("granite-3-2b")
+    cfg = get_arch(arch)
     L = cfg.num_layers
-    print(f"phase 5: main path, {cfg.name} at full width ({L} layers, d_model "
-          f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads, vocab "
-          f"{cfg.padded_vocab}), served over TCP", flush=True)
+    mixer = (f"{cfg.ssm.n_heads(cfg.d_model)} SSD heads of {cfg.ssm.head_dim}, d_state "
+             f"{cfg.ssm.d_state}, chunk {cfg.ssm.chunk}" if cfg.family == "ssm"
+             else f"{cfg.num_heads}/{cfg.num_kv_heads} heads")
+    print(f"phase {phase}: main path, {cfg.name} at full width ({L} layers, d_model "
+          f"{cfg.d_model}, {mixer}, vocab {cfg.padded_vocab}), B {MAIN_B} S {seq}, "
+          f"served over TCP", flush=True)
     dest = DestinationExecutor({"lm": make_model_library(cfg, CACHE_LEN, device=dev)},
                                name="h100", device=dev)
     server = TCPServer(dest.handle).start()
@@ -301,7 +389,7 @@ def main_path(seed: int, dev, profile: bool = False) -> dict:
         del params_host
 
         rng = np.random.default_rng(seed)
-        tokens = rng.integers(0, cfg.vocab_size, (MAIN_B, MAIN_S)).astype(np.int32)
+        tokens = rng.integers(0, cfg.vocab_size, (MAIN_B, seq)).astype(np.int32)
         calls = []
 
         def call(fn, args):
@@ -326,11 +414,8 @@ def main_path(seed: int, dev, profile: bool = False) -> dict:
             print(f"  {fn:8s} compute_s {comp:.5f}  wire_s {wire:.5f}", flush=True)
         print(f"  launches on the main path: {counts}", flush=True)
 
-        n_fwd = 1 + N_DECODE + 1                       # prefill, decodes, score
-        check(counts == {"rmsnorm": (2 * L + 1) * n_fwd, "flash_attention": L * 2,
-                         "decode_attention": L * N_DECODE},
-              f"launch counts match the model: rmsnorm {2 * L + 1}/forward, flash "
-              f"{L}/prefill or score, decode {L}/step")
+        want = expected_counts(cfg)
+        check(counts == want, f"launch counts match the model's structure: {want}")
         check(all(np.isfinite(lg[..., :cfg.vocab_size]).all() for lg in logits)
               and all(lg.shape == (MAIN_B, 1, cfg.padded_vocab) for lg in logits),
               f"logits finite, shape {(MAIN_B, 1, cfg.padded_vocab)}")
@@ -345,14 +430,14 @@ def main_path(seed: int, dev, profile: bool = False) -> dict:
         scale = plain.abs().max().item()
         check(e <= 0.05 * scale,
               f"prefill logits, kernels vs plain versions on the card: max abs err {e:.4f} "
-              f"(bf16 tolerance 5% of max |logit| {scale:.3f})")
+              f"({100 * e / scale:.2f}% of max |logit| {scale:.3f}; bf16 tolerance 5%)")
         if profile:
             lib = dest.libraries["lm"]
             toks = torch.from_numpy(tokens).to(dev)
-            profile_call("prefill", lambda: lib["prefill"](entry["params"], entry["state"],
-                                                           {"tokens": toks}))
-            profile_call("decode", lambda: lib["decode"](entry["params"], entry["state"],
-                                                         {"tokens": toks[:, :1]}))
+            profile_call(f"{arch} prefill", lambda: lib["prefill"](
+                entry["params"], entry["state"], {"tokens": toks}))
+            profile_call(f"{arch} decode", lambda: lib["decode"](
+                entry["params"], entry["state"], {"tokens": toks[:, :1]}))
         return counts
     finally:
         host.close()
@@ -409,12 +494,16 @@ def main(argv=None) -> int:
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
     rows = kernel_times(gen, dev, kernel_checks(gen, dev))
-    small_model_check(args.seed, dev)
-    counts = main_path(args.seed, dev, profile=args.profile)
+    small_model_check("4", "granite-3-2b", args.seed, dev)
+    small_model_check("4b", "mamba2-130m", args.seed, dev)
+    dense = main_path("5", "granite-3-2b", MAIN_S, args.seed, dev, profile=args.profile)
+    ssm = main_path("6", "mamba2-130m", SSM_S, args.seed, dev, profile=args.profile)
+    counts = {name: dense[name] + ssm[name] for name in dense}   # both main paths' launches
 
     replaces = {"rmsnorm": "src/repro/kernels/rmsnorm.py:22",
                 "flash_attention": "src/repro/kernels/flash_attention.py:72",
-                "decode_attention": "src/repro/kernels/decode_attention.py:67"}
+                "decode_attention": "src/repro/kernels/decode_attention.py:67",
+                "ssd_scan": "src/repro/kernels/ssd_scan.py:72"}
     kernels = [{"name": name, "route": "cuda",
                 "source": f"src/repro_torch/kernels/csrc/{name}.cu",
                 "replaces": replaces[name], "launches": counts[name],

@@ -3,7 +3,8 @@ destination-executable libraries (the "Caffe" of this reproduction).
 
 Library functions have signature ``fn(params, state, args) -> outputs`` where
 ``state`` is the mutable per-session dict (serving caches live there, which
-is what migration snapshots).  Arguments arrive as tensors on the
+is what migration snapshots: a dense model's KV cache or a mamba2 model's
+conv windows and SSM states, both plain tensor trees).  Arguments arrive as tensors on the
 executor's device (the parameters' device); outputs are tensors the executor
 brings back to host numpy.  The OpenPose-lite library is not ported yet."""
 from __future__ import annotations
@@ -15,7 +16,8 @@ from repro_torch.utils import resolve_device
 
 
 def make_model_library(cfg, max_cache_len: int = 256, device="cuda") -> dict:
-    """Serving library for one ModelConfig: score / prefill / decode / hidden."""
+    """Serving library for one ModelConfig (dense or ssm family): score /
+    prefill / decode / hidden."""
     resolve_device(device)      # the entry point's device rule: no quiet CPU fallback
 
     @torch.inference_mode()

@@ -17,8 +17,10 @@ import contextlib
 from repro_torch.kernels import decode_attention as _dec
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import rmsnorm as _rms
+from repro_torch.kernels import ssd_scan as _ssd
 
-_KERNELS = {"rmsnorm": _rms, "flash_attention": _fa, "decode_attention": _dec}
+_KERNELS = {"rmsnorm": _rms, "flash_attention": _fa, "decode_attention": _dec,
+            "ssd_scan": _ssd}
 _forced: str | None = None
 
 
@@ -82,3 +84,16 @@ def rmsnorm(x, scale, *, eps: float = 1e-6, impl: str | None = None):
     if not _use_kernel(x, impl):
         return _rms.rmsnorm_plain(x, scale, eps=eps)
     return _rms.rmsnorm_cuda(x, scale, eps=eps)
+
+
+def ssd_scan(x, dt, A, Bm, Cm, *, chunk: int = 256, impl: str | None = None):
+    """Model layout x: (B,S,H,P), dt: (B,S,H), A: (H,), Bm/Cm: (B,S,G,N).
+    Returns (y (B,S,H,P), final_state (B,H,P,N) fp32).  The chunk length
+    follows the JAX package's wrapper: S itself when it divides S, else
+    ``chunk`` with a ragged last chunk (zero-padded by the plain version,
+    masked inside the kernel)."""
+    S = x.shape[1]
+    L = min(chunk, S) if S % min(chunk, S) == 0 else chunk
+    if not _use_kernel(x, impl):
+        return _ssd.ssd_scan_plain(x, dt, A, Bm, Cm, L)
+    return _ssd.ssd_scan_cuda(x, dt, A, Bm, Cm, chunk=L)

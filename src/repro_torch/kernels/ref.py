@@ -4,11 +4,16 @@ The same math as ``repro/kernels/ref.py``: the CPU tests hold the port
 against the JAX package with them, the kernel wrappers use them for tensors
 that lie on the CPU, and ``chip_smoke.py`` holds each CUDA kernel against
 them on the card.  Ragged ``Sq``/``Sk`` need no padding here: the whole
-score matrix is formed and masked.
+score matrix is formed and masked.  ``ssd_scan`` is the chunked algorithm
+the model runs (``models/ssd.py`` ``ssd_chunked``), not the per-step oracle
+of the JAX package's ``ref.ssd_scan``: the same function, without a Python
+loop over every position on the card.
 """
 from __future__ import annotations
 
 import torch
+
+from repro_torch.models.ssd import ssd_chunked
 
 NEG_INF = -1e30
 
@@ -47,3 +52,10 @@ def rmsnorm(x, scale, eps: float = 1e-6):
     xf = x.float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+
+
+def ssd_scan(x, dt, A, Bm, Cm, chunk: int):
+    """x: (B,S,H,P); dt: (B,S,H) post-softplus; A: (H,) negative; Bm, Cm:
+    (B,S,G,N).  Chunks of ``chunk`` positions, S zero-padded.  Returns
+    (y (B,S,H,P) in x.dtype, final_state (B,H,P,N) fp32)."""
+    return ssd_chunked(x, dt, A, Bm, Cm, chunk)

@@ -1,4 +1,4 @@
-"""Unified model API for the dense decoder family.
+"""Unified model API for the dense decoder and pure-SSM (mamba2) families.
 
 Functions (cfg is static; tensors live on the params' device):
   param_specs(cfg)                       -> ParamSpec tree

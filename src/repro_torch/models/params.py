@@ -5,7 +5,8 @@ Every model module declares its parameters as a nested dict of ``ParamSpec``
 ``init_params`` materializes a spec tree with a seeded ``torch.Generator``
 per leaf (same shapes, scales and dtypes as the reference; the random bits
 differ, so equivalence tests carry the reference's own weights across with
-:func:`from_numpy_tree`).
+:func:`from_numpy_tree`).  The two Mamba initializers are deterministic
+numpy, copied from the reference, and give bit-equal leaves.
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ from repro_torch.utils import keystr, to_tensor, tree_flatten_with_path, tree_ma
 class ParamSpec(NamedTuple):
     shape: tuple
     axes: tuple            # logical axis names, len == len(shape); None entries replicate
-    init: str = "normal"   # normal | zeros | ones
+    init: str = "normal"   # normal | zeros | ones | mamba_dt_bias | mamba_a_log
     scale: float = 0.02    # stddev for "normal"
     dtype: Optional[torch.dtype] = None  # override model param_dtype (e.g. fp32 norms)
 
@@ -60,6 +61,17 @@ def init_params(specs, seed: int, param_dtype=torch.bfloat16, device="cuda"):
             g.manual_seed((int(seed) << 32) ^ _path_seed(path))
             x = torch.randn(spec.shape, generator=g, dtype=torch.float32, device=device)
             leaves.append((x * spec.scale).to(dtype))
+        elif spec.init == "mamba_dt_bias":
+            # dt bias such that softplus(dt_bias) spans [1e-3, 1e-1] (Mamba
+            # init), spread over every element of the (stacked) leaf
+            n = int(np.prod(spec.shape))
+            dt = np.exp(np.linspace(np.log(1e-3), np.log(1e-1), max(n, 1)))
+            inv = dt + np.log(-np.expm1(-dt))
+            leaves.append(torch.from_numpy(inv.reshape(spec.shape)).to(dtype).to(device))
+        elif spec.init == "mamba_a_log":
+            n_last = spec.shape[-1]
+            a = np.broadcast_to(np.arange(1, n_last + 1, dtype=np.float32), spec.shape)
+            leaves.append(torch.from_numpy(np.log(a)).to(dtype).to(device))
         else:
             raise ValueError(f"unknown init {spec.init!r}")
     return tree_unflatten(treedef, leaves)

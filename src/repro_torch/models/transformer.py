@@ -1,11 +1,12 @@
-"""Decoder-only stack: a Python loop over the stacked block parameters (the
-reference's ``lax.scan``).  Returns hidden states; unembedding and losses
-live in ``repro_torch.models.model``."""
+"""Decoder-only stack (dense and pure-SSM families): a Python loop over the
+stacked block parameters (the reference's ``lax.scan``).  Returns hidden
+states; unembedding and losses live in ``repro_torch.models.model``."""
 from __future__ import annotations
 
 import torch
 
-from repro_torch.models.blocks import apply_block, block_specs, num_blocks, stacked_cache
+from repro_torch.models.blocks import (apply_block, block_specs, decode_cache, num_blocks,
+                                       stacked_cache)
 from repro_torch.models.layers import apply_norm, embed_specs, embed_tokens, norm_specs
 from repro_torch.models.params import stack_specs
 from repro_torch.utils import tree_map
@@ -43,7 +44,8 @@ def lm_prefill(cfg, params, tokens, cache_len: int, *, cache_dtype=torch.bfloat1
 
     The cache takes the COMPUTE dtype, as the reference's does:
     ``lm_prefill`` there uses its ``cache_dtype`` init only for the shape
-    and stacks the prefill's own keys and values.  ``cache_dtype`` is
+    and stacks the prefill's own keys and values (or, for an SSM layer,
+    conv windows; its ``ssm`` state stays fp32).  ``cache_dtype`` is
     accepted for that reason and has no effect here either."""
     del cache_dtype
     B, _ = tokens.shape
@@ -58,11 +60,14 @@ def lm_prefill(cfg, params, tokens, cache_len: int, *, cache_dtype=torch.bfloat1
 
 def lm_decode_step(cfg, params, cache, tokens, pos):
     """One-token decode.  tokens: (B,1); pos: () shared or (B,) per-row.
-    Returns (h, cache); the cache is updated in place."""
+    Returns (h, cache); the cache is updated in place (an SSM conv leaf in
+    another dtype than the compute dtype is first converted to it, as the
+    reference's decode returns it)."""
     pos = torch.as_tensor(pos, dtype=torch.int32, device=tokens.device)
     B = tokens.shape[0]
     positions = pos[:, None] if pos.ndim == 1 else pos.reshape(1, 1).expand(B, 1)
     h = embed_tokens(cfg, params["embed"], tokens)
+    cache = decode_cache(cfg, cache, h.dtype)
     for i in range(num_blocks(cfg)):
         h, _ = apply_block(cfg, _block(params["blocks"], i), h, positions=positions,
                            mode="decode", cache=_block(cache, i), pos=pos)

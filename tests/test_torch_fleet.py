@@ -1,7 +1,8 @@
 """Mixed fleets over real TCP sockets: a JAX-package host drives a port
 destination (on the CPU) and gets what a JAX-package destination returns; a
 port snapshot restores into a JAX-package destination; a port host drives a
-JAX-package destination.
+JAX-package destination.  The same for reduced mamba2-130m, whose session
+state is a conv window and an SSM state instead of a KV cache.
 
 Tolerance 1e-4 on float32 logits and loss (the reference's own
 cache-consistency bound is 2e-3)."""
@@ -185,3 +186,60 @@ def test_destination_refuses_cuda_without_a_card(monkeypatch):
         DestinationExecutor({}, device="cuda")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         make_model_library(tconfigs.get_arch(ARCH))
+
+
+# ---------------------------------------------------------------------------
+# mamba2-130m: the SSM family behind the same executor
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def mamba_setup():
+    cfg = reduced(get_arch("mamba2-130m"))
+    tcfg = tconfigs.reduced(tconfigs.get_arch("mamba2-130m"))
+    params = jax.tree_util.tree_map(np.asarray, RM.init_params(cfg, jax.random.PRNGKey(0)))
+    fp = model_fingerprint(tcfg, from_numpy_tree(params, "cpu"))
+    toks = np.random.default_rng(1).integers(0, cfg.vocab_size, (B, S + 4)).astype(np.int32)
+    return cfg, tcfg, params, fp, toks
+
+
+def test_reference_host_drives_port_mamba_destination(mamba_setup):
+    cfg, tcfg, params, fp, toks = mamba_setup
+    ref = _Node(_ref_dest(cfg), RefServer, RefHost, RefChannel)
+    port = _Node(_port_dest(tcfg), TCPServer, RefHost, RefChannel)
+    try:
+        want = _drive(ref.host, fp, params, toks)
+        got = _drive(port.host, fp, params, toks)
+        assert port.host.has_model(fp)
+        for a, b in zip(got, want):
+            assert a.shape == b.shape and a.dtype == b.dtype == np.float32
+            np.testing.assert_allclose(a, b, atol=TOL, rtol=TOL)
+    finally:
+        ref.close()
+        port.close()
+
+
+@pytest.mark.parametrize("direction", ["port_to_reference", "reference_to_port"])
+def test_mamba_snapshot_restores_across_packages(mamba_setup, direction):
+    """A mamba session (conv window + fp32 SSM state) snapshotted on one
+    package's destination restores into the other's and decodes the same."""
+    cfg, tcfg, params, fp, toks = mamba_setup
+    port = _Node(_port_dest(tcfg), TCPServer, RefHost, RefChannel)
+    ref = _Node(_ref_dest(cfg), RefServer, RefHost, RefChannel)
+    src, dst = (port, ref) if direction == "port_to_reference" else (ref, port)
+    try:
+        for node in (src, dst):
+            node.host.put_model(fp, "lm", params)
+        src.host.run(fp, "prefill", {"tokens": toks[:, :S]})
+        snap = src.host.snapshot(fp)
+        assert int(np.asarray(snap["pos"])) == S
+        layer = snap["cache"]["layers"][0]
+        assert sorted(layer) == ["conv", "ssm"] and str(layer["ssm"].dtype) == "float32"
+        dst.host.restore(fp, snap)
+        for i in range(2):
+            nt = {"tokens": toks[:, S + i:S + i + 1]}
+            a = np.array(src.host.run(fp, "decode", nt)["logits"])
+            b = np.array(dst.host.run(fp, "decode", nt)["logits"])
+            np.testing.assert_allclose(b, a, atol=TOL, rtol=TOL)
+    finally:
+        port.close()
+        ref.close()

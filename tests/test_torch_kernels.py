@@ -161,7 +161,8 @@ def test_cpu_tensors_take_the_plain_versions_and_count_nothing():
     assert torch.equal(ops.decode_attention(q[:, :1], k, k, kv),
                        ref.decode_attention(q[:, 0].reshape(1, 2, 2, 16), k.transpose(1, 2),
                                             k.transpose(1, 2), kv).reshape(1, 1, 4, 16))
-    assert ops.launch_counts() == {"rmsnorm": 0, "flash_attention": 0, "decode_attention": 0}
+    assert ops.launch_counts() == {"rmsnorm": 0, "flash_attention": 0, "decode_attention": 0,
+                                   "ssd_scan": 0}
 
 
 def test_kernel_paths_refuse_cpu_tensors():

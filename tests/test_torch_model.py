@@ -198,6 +198,6 @@ def test_init_params_shapes_dtypes_scales_match_reference():
 
 
 def test_non_dense_families_raise():
-    for arch in ["mamba2-130m", "moonshot-v1-16b-a3b", "whisper-medium"]:
+    for arch in ["jamba-1.5-large-398b", "moonshot-v1-16b-a3b", "whisper-medium"]:
         with pytest.raises(NotImplementedError):
             TM.param_specs(tconfigs.reduced(tconfigs.get_arch(arch)))
