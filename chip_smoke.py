@@ -128,15 +128,20 @@ def kernel_checks(gen, dev) -> dict:
     bf16, f32 = torch.bfloat16, torch.float32
     main_err = {}
     print("phase 3: kernels vs plain versions on the card", flush=True)
-    # rmsnorm: f32 atol 1e-5 (test_kernels.py); bf16 within one output ulp (rtol 1e-2)
-    for shape, dt in [((MAIN_B, MAIN_S, 2048), bf16), ((MAIN_B, MAIN_S, 2048), f32),
-                      ((MAIN_B, 1, 2048), bf16), ((37, 512), f32), ((5, 16), f32),
-                      ((3, 128), bf16)]:
-        x, s = randn(*shape, dtype=dt), randn(shape[-1])
+    # rmsnorm: f32 atol 1e-5 (test_kernels.py); bf16 within one output ulp (rtol 1e-2).
+    # granite-3-2b's shapes, small ones, then mamba2-130m's as its path gives them:
+    # mixer and final norms on bf16 x with the bf16 scale, the gated norm on
+    # fp32 x (d_inner 1536) with the fp32 scale, prefill and decode
+    for shape, dt, sdt in [((MAIN_B, MAIN_S, 2048), bf16, f32), ((MAIN_B, MAIN_S, 2048), f32, f32),
+                           ((MAIN_B, 1, 2048), bf16, f32), ((37, 512), f32, f32),
+                           ((5, 16), f32, f32), ((3, 128), bf16, f32),
+                           ((MAIN_B, SSM_S, 768), bf16, bf16), ((MAIN_B, SSM_S, 1536), f32, f32),
+                           ((MAIN_B, 1, 768), bf16, bf16), ((MAIN_B, 1, 1536), f32, f32)]:
+        x, s = randn(*shape, dtype=dt), randn(shape[-1], dtype=sdt)
         got, want = ops.rmsnorm(x, s), ops.rmsnorm(x, s, impl="ref")
         e = max_err(got, want)
         tol = (got.float() - want.float()).abs() <= 1e-5 + (1e-2 if dt == bf16 else 0) * want.float().abs()
-        check(bool(tol.all()), f"rmsnorm {shape} {dt}: max abs err {e:.3e}")
+        check(bool(tol.all()), f"rmsnorm {shape} {dt} scale {sdt}: max abs err {e:.3e}")
         if shape == (MAIN_B, MAIN_S, 2048) and dt == bf16:
             main_err["rmsnorm"] = e
     # flash: atol 2e-5 in f32, 2e-2 in bf16 (test_kernels.py)

@@ -5,15 +5,14 @@ against the JAX package with them, the kernel wrappers use them for tensors
 that lie on the CPU, and ``chip_smoke.py`` holds each CUDA kernel against
 them on the card.  Ragged ``Sq``/``Sk`` need no padding here: the whole
 score matrix is formed and masked.  ``ssd_scan`` is the chunked algorithm
-the model runs (``models/ssd.py`` ``ssd_chunked``), not the per-step oracle
-of the JAX package's ``ref.ssd_scan``: the same function, without a Python
-loop over every position on the card.
+the model runs (``models/ssd.py`` binds it as ``ssd_chunked``), not the
+per-step oracle of the JAX package's ``ref.ssd_scan``: the same function,
+without a Python loop over every position on the card.
 """
 from __future__ import annotations
 
 import torch
-
-from repro_torch.models.ssd import ssd_chunked
+import torch.nn.functional as F
 
 NEG_INF = -1e30
 
@@ -54,8 +53,60 @@ def rmsnorm(x, scale, eps: float = 1e-6):
     return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
 
 
-def ssd_scan(x, dt, A, Bm, Cm, chunk: int):
-    """x: (B,S,H,P); dt: (B,S,H) post-softplus; A: (H,) negative; Bm, Cm:
-    (B,S,G,N).  Chunks of ``chunk`` positions, S zero-padded.  Returns
-    (y (B,S,H,P) in x.dtype, final_state (B,H,P,N) fp32)."""
-    return ssd_chunked(x, dt, A, Bm, Cm, chunk)
+def repeat_groups(t, rep: int, dim: int):
+    """Broadcast G groups of B/C over H = G * rep heads along ``dim``."""
+    return torch.repeat_interleave(t, rep, dim=dim) if rep > 1 else t
+
+
+def ssd_scan(x, dt, A, B, C, chunk: int, state0=None):
+    """Chunked SSD (Mamba2 Listing 1).  x: (B,S,H,P); dt: (B,S,H)
+    post-softplus; A: (H,) negative; B, C: (B,S,G,N).  Chunks of ``chunk``
+    positions, S zero-padded.  Returns (y (B,S,H,P) in x.dtype, final_state
+    (B,H,P,N) fp32)."""
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    rep = h // g
+    pad = (-s) % chunk
+    xf = F.pad(x.float(), (0, 0, 0, 0, 0, pad))
+    dtf = F.pad(dt.float(), (0, 0, 0, pad))
+    Bf = F.pad(B.float(), (0, 0, 0, 0, 0, pad))
+    Cf = F.pad(C.float(), (0, 0, 0, 0, 0, pad))
+    Af = A.float()
+    nc, L = (s + pad) // chunk, chunk
+
+    xc = xf.reshape(b, nc, L, h, p)
+    dtc = dtf.reshape(b, nc, L, h)
+    Bc = Bf.reshape(b, nc, L, g, n)
+    Cc = Cf.reshape(b, nc, L, g, n)
+
+    a = torch.cumsum(dtc * Af, dim=2).transpose(2, 3)               # (b,nc,h,L) inclusive
+
+    # ---- intra-chunk (quadratic, attention-like) -------------------------
+    CB = repeat_groups(torch.einsum("bclgn,bcmgn->bcglm", Cc, Bc), rep, 2)   # (b,nc,h,L,L)
+    diff = a[..., :, None] - a[..., None, :]
+    # exp(diff) overflows above the diagonal: mask before the exp, never
+    # multiply a mask into it (inf * 0 is NaN)
+    mask = torch.ones(L, L, dtype=torch.bool, device=x.device).tril()
+    decay = torch.exp(diff.masked_fill(~mask, float("-inf")))
+    scores = CB * decay * dtc.transpose(2, 3)[..., None, :]
+    y_intra = torch.einsum("bchlm,bcmhp->bclhp", scores, xc)
+
+    # ---- per-chunk final states ------------------------------------------
+    w = torch.exp(a[..., -1:] - a).transpose(2, 3) * dtc            # (b,nc,L,h)
+    states = torch.einsum("bclhn,bclh,bclhp->bchpn", repeat_groups(Bc, rep, 3), w, xc)
+
+    # ---- inter-chunk linear recurrence ------------------------------------
+    chunk_decay = torch.exp(a[..., -1])                              # (b,nc,h)
+    st = (torch.zeros(b, h, p, n, dtype=torch.float32, device=x.device)
+          if state0 is None else state0.float())
+    prev = []
+    for c in range(nc):
+        prev.append(st)                                              # state ENTERING chunk c
+        st = st * chunk_decay[:, c, :, None, None] + states[:, c]
+    prev = torch.stack(prev, dim=1)                                  # (b,nc,h,p,n)
+
+    # ---- inter-chunk output contribution ----------------------------------
+    y_inter = torch.einsum("bclhn,bchpn,bclh->bclhp", repeat_groups(Cc, rep, 3), prev,
+                           torch.exp(a).transpose(2, 3))
+    y = (y_intra + y_inter).reshape(b, nc * L, h, p)[:, :s]
+    return y.to(x.dtype), st

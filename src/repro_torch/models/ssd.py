@@ -2,8 +2,8 @@
 
 ``ssd_chunked``    — the chunked algorithm (Mamba2 Listing 1): quadratic
                      attention-like intra-chunk term + linear inter-chunk
-                     recurrence.  ``kernels/ref.py`` ``ssd_scan`` is this
-                     function at the kernel's chunk length; the CUDA kernel
+                     recurrence.  It is ``kernels/ref.py`` ``ssd_scan``, the
+                     SSD kernel's plain version; the CUDA kernel
                      ``kernels/csrc/ssd_scan.cu`` computes the same schedule.
 ``ssd_sequential`` — per-timestep linear recurrence (the semantic oracle, and
                      the shape of the single-token decode update).
@@ -15,11 +15,11 @@ B/C (B,S,G,N) with G groups broadcast over H heads.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
+from repro_torch.kernels.ref import repeat_groups
+from repro_torch.kernels.ref import ssd_scan as ssd_chunked
 
-def _rep(t, rep: int, dim: int):
-    return torch.repeat_interleave(t, rep, dim=dim) if rep > 1 else t
+__all__ = ["ssd_chunked", "ssd_sequential", "ssd_step"]
 
 
 def ssd_sequential(x, dt, A, B, C, state0=None):
@@ -29,7 +29,7 @@ def ssd_sequential(x, dt, A, B, C, state0=None):
     g, n = B.shape[2], B.shape[3]
     rep = h // g
     xf, dtf, Af = x.float(), dt.float(), A.float()
-    Bh, Ch = _rep(B.float(), rep, 2), _rep(C.float(), rep, 2)       # (b,s,h,n)
+    Bh, Ch = repeat_groups(B.float(), rep, 2), repeat_groups(C.float(), rep, 2)  # (b,s,h,n)
     state = (torch.zeros(b, h, p, n, dtype=torch.float32, device=x.device)
              if state0 is None else state0.float())
     ys = []
@@ -42,65 +42,13 @@ def ssd_sequential(x, dt, A, B, C, state0=None):
     return y.to(x.dtype), state
 
 
-def ssd_chunked(x, dt, A, B, C, chunk: int, state0=None):
-    """Chunked SSD (Mamba2 Listing 1), S zero-padded to a multiple of
-    ``chunk``.  Returns (y (B,S,H,P) in x.dtype, final_state (B,H,P,N) fp32)."""
-    b, s, h, p = x.shape
-    g, n = B.shape[2], B.shape[3]
-    rep = h // g
-    pad = (-s) % chunk
-    xf = F.pad(x.float(), (0, 0, 0, 0, 0, pad))
-    dtf = F.pad(dt.float(), (0, 0, 0, pad))
-    Bf = F.pad(B.float(), (0, 0, 0, 0, 0, pad))
-    Cf = F.pad(C.float(), (0, 0, 0, 0, 0, pad))
-    Af = A.float()
-    nc, L = (s + pad) // chunk, chunk
-
-    xc = xf.reshape(b, nc, L, h, p)
-    dtc = dtf.reshape(b, nc, L, h)
-    Bc = Bf.reshape(b, nc, L, g, n)
-    Cc = Cf.reshape(b, nc, L, g, n)
-
-    a = torch.cumsum(dtc * Af, dim=2).transpose(2, 3)               # (b,nc,h,L) inclusive
-
-    # ---- intra-chunk (quadratic, attention-like) -------------------------
-    CB = _rep(torch.einsum("bclgn,bcmgn->bcglm", Cc, Bc), rep, 2)   # (b,nc,h,L,L)
-    diff = a[..., :, None] - a[..., None, :]
-    # exp(diff) overflows above the diagonal: mask before the exp, never
-    # multiply a mask into it (inf * 0 is NaN)
-    mask = torch.ones(L, L, dtype=torch.bool, device=x.device).tril()
-    decay = torch.exp(diff.masked_fill(~mask, float("-inf")))
-    scores = CB * decay * dtc.transpose(2, 3)[..., None, :]
-    y_intra = torch.einsum("bchlm,bcmhp->bclhp", scores, xc)
-
-    # ---- per-chunk final states ------------------------------------------
-    w = torch.exp(a[..., -1:] - a).transpose(2, 3) * dtc            # (b,nc,L,h)
-    states = torch.einsum("bclhn,bclh,bclhp->bchpn", _rep(Bc, rep, 3), w, xc)
-
-    # ---- inter-chunk linear recurrence ------------------------------------
-    chunk_decay = torch.exp(a[..., -1])                              # (b,nc,h)
-    st = (torch.zeros(b, h, p, n, dtype=torch.float32, device=x.device)
-          if state0 is None else state0.float())
-    prev = []
-    for c in range(nc):
-        prev.append(st)                                              # state ENTERING chunk c
-        st = st * chunk_decay[:, c, :, None, None] + states[:, c]
-    prev = torch.stack(prev, dim=1)                                  # (b,nc,h,p,n)
-
-    # ---- inter-chunk output contribution ----------------------------------
-    y_inter = torch.einsum("bclhn,bchpn,bclh->bclhp", _rep(Cc, rep, 3), prev,
-                           torch.exp(a).transpose(2, 3))
-    y = (y_intra + y_inter).reshape(b, nc * L, h, p)[:, :s]
-    return y.to(x.dtype), st
-
-
 def ssd_step(state, x_t, dt_t, A, B_t, C_t):
     """Single decode step.  state: (B,H,P,N); x_t: (B,H,P); dt_t: (B,H);
     B_t/C_t: (B,G,N).  Returns (y_t (B,H,P), new_state fp32)."""
     rep = x_t.shape[1] // B_t.shape[1]
     dtf = dt_t.float()
     da = torch.exp(dtf * A.float())
-    Bh, Ch = _rep(B_t.float(), rep, 1), _rep(C_t.float(), rep, 1)
+    Bh, Ch = repeat_groups(B_t.float(), rep, 1), repeat_groups(C_t.float(), rep, 1)
     sf = state.float() * da[..., None, None] + torch.einsum(
         "bh,bhn,bhp->bhpn", dtf, Bh, x_t.float())
     y = torch.einsum("bhn,bhpn->bhp", Ch, sf)

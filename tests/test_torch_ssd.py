@@ -169,7 +169,7 @@ def test_ops_ssd_scan_chunk_rule(monkeypatch, S, chunk, L):
 def test_ssd_scan_dispatch_and_counter():
     ops.reset_launch_counts()
     t = [torch.from_numpy(a) for a in _inputs(1, 9, 2, 16, 1, 16)]
-    assert sk.ssd_scan_plain is ref.ssd_scan
+    assert sk.ssd_scan_plain is ref.ssd_scan is ssd.ssd_chunked   # one function, one body
     y, st = ops.ssd_scan(*t, chunk=8)
     y2, st2 = ref.ssd_scan(*t, 8)
     assert torch.equal(y, y2) and torch.equal(st, st2)
