@@ -14,10 +14,22 @@ Phases (any failed check exits non-zero):
    kernel, plain version and the PyTorch yardstick (``F.rms_norm``,
    ``F.scaled_dot_product_attention``, timed only, never called by the port;
    no single PyTorch call computes the SSD scan) at the main paths' shapes;
+   the int8 quantize/dequantize kernels at every gradient leaf shape of
+   granite-3-2b and mamba2-130m (fp32 and bf16 input), with rows that tie
+   at k + 0.5, all-zero rows and rows of +-absmax: q equal, scale within rtol
+   1e-6, timed at w_gate's and wq's shapes (dequantize's yardstick
+   ``torch.mul(q, scale)``, timed only; no single PyTorch call quantizes
+   per row);
+3b. gradients through each kernel's ``torch.autograd.Function`` (rmsnorm,
+   flash attention, SSD scan) against the plain path's, bf16 and fp32,
+   ragged lengths and head_dim 16;
 4. a reduced granite-3-2b in float32 through the kernels on the card against
    the plain versions on the CPU (the CPU tests hold those against the JAX
    package), and prefill + decode against forward;
 4b. the same for a reduced mamba2-130m;
+4c. reduced granite-3-2b and mamba2-130m (float32) take 3 train steps on the
+   card (kernels, recompute backward) and on the CPU (plain) from the same
+   params: losses and params agree;
 5. the first main path at full width: a port ``DestinationExecutor`` serving
    ``make_model_library(granite-3-2b)`` behind the port's ``TCPServer`` on
    127.0.0.1, driven by a port ``HostRuntime`` over ``TCPChannel``: ping,
@@ -28,7 +40,15 @@ Phases (any failed check exits non-zero):
    plain versions;
 6. the second main path, the same way: full-width mamba2-130m (24 layers,
    d_model 768), prefill (B 2, S 1024: four chunks of 256), 8 decodes and a
-   score, through the SSD-scan and rmsnorm kernels.
+   score, through the SSD-scan and rmsnorm kernels;
+7. the training path at full width: granite-3-2b as registered (bf16,
+   remat, AdamW) takes 4 ``Trainer`` steps (B 8, S 256), with exact
+   launch counts per step; one data-parallel step exchanges its gradients
+   through ``compressed_grad_allreduce`` over a one-rank NCCL group (built
+   from a file store: no network) before ``apply_updates``; then
+   ``ErrorFeedback`` and ``compress_tree``/``decompress_tree`` over the same
+   gradients.  Prints step wall time, peak device memory and the exchange's
+   time and wire bytes (``--profile``: one training step traced).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -71,7 +91,8 @@ def max_err(a, b) -> float:
 
 
 def device_events(fn):
-    """Run ``fn`` under torch.profiler; -> (host wall ms, device events)."""
+    """Run ``fn`` under torch.profiler; -> (host wall ms, device events, all
+    events: host ops and ranges too)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -80,8 +101,11 @@ def device_events(fn):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    return wall_ms, [e for e in prof.events()
-                     if e.device_type == torch.autograd.DeviceType.CUDA]
+    events = prof.events()
+    # a record_function range also leaves a device-side annotation event
+    # spanning its kernels: not a kernel, so not device time
+    return wall_ms, [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+                     and not e.is_user_annotation], events
 
 
 def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
@@ -96,7 +120,7 @@ def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
         for _ in range(iters):
             fn()
 
-    _, events = device_events(loop)
+    _, events, _ = device_events(loop)
     return sum(e.time_range.elapsed_us() for e in events) / 1e3 / iters
 
 
@@ -298,6 +322,208 @@ def kernel_times(gen, dev, main_err: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 3: the int8 quantize / dequantize kernels
+# ---------------------------------------------------------------------------
+
+def leaf_row_shapes(arch: str) -> list:
+    """(rows, cols) of every parameter leaf of ``arch`` under
+    ``comm_quant.leaf_rows``: the shapes its gradients are quantized at."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.comm_quant import leaf_rows
+    from repro_torch.models import model as M
+    from repro_torch.utils import tree_leaves
+
+    out = []
+    for t in tree_leaves(M.abstract_params(get_arch(arch))):     # meta tensors
+        rs = tuple(leaf_rows(t).shape)
+        if rs not in out:
+            out.append(rs)
+    return out
+
+
+def special_rows(dev, cols: int) -> torch.Tensor:
+    """Rows whose x / scale lands exactly on k + 0.5 (scale 2**-7, so
+    absmax 127/128 and every (k + 0.5) * 2**-7 is exact), an all-zero row,
+    and a row of +-absmax."""
+    s = 2.0 ** -7
+    ks = np.arange(-127, 127)                       # k + 0.5 in [-126.5, 126.5]
+    ties = np.resize((ks + 0.5) * s, (3, cols))
+    ties[:, 0] = 127 * s                            # the row's absmax, q = 127
+    ties[1] *= -1
+    signs = np.where(np.arange(cols) % 2 == 0, 1.0, -1.0) * 3.25
+    rows = np.concatenate([ties, np.zeros((1, cols)), signs[None]], axis=0)
+    return torch.from_numpy(rows.astype(np.float32)).to(dev)
+
+
+def quant_checks(gen, dev) -> dict:
+    """quantize_int8 / dequantize_int8 against their plain versions (and
+    quantize against the wire codec's numpy mirror) -> the max abs errors at
+    w_gate's shape (q as an integer difference).
+    Tolerances: q equal element for element and scale within rtol 1e-6
+    (``tests/test_kernels.py``'s hold on the Pallas kernel: the same IEEE
+    division and round-half-to-even, so nothing may differ); dequantize
+    equal to the plain fp32 product; the round trip within the documented
+    bound absmax_row / 254 plus fp32 rounding (absmax_row * 2**-22)."""
+    from repro_torch.kernels import comm_quant as cq
+    from repro_torch.kernels import ops
+
+    print("phase 3: int8 quantize / dequantize vs plain versions on the card", flush=True)
+    shapes = leaf_row_shapes("granite-3-2b") + [
+        rs for rs in leaf_row_shapes("mamba2-130m") if rs not in leaf_row_shapes("granite-3-2b")]
+    errs = {}
+    for rows, cols in shapes + [(5, 24), (5, 64), (5, 257), (5, 8192)]:
+        base = (torch.randn(rows, cols, generator=gen, device=dev)
+                * torch.rand(rows, 1, generator=gen, device=dev) * 0.01)
+        if rows >= 5:                                # ties, zero and +-absmax rows
+            base[:5] = special_rows(dev, cols)
+        for dt in (torch.float32, torch.bfloat16):
+            x = base.to(dt)
+            q, s = ops.quantize_int8(x)
+            qr, sr = ops.quantize_int8(x, impl="ref")
+            torch.cuda.synchronize()
+            eq = int((q.int() - qr.int()).abs().max().item())
+            es = ((s - sr).abs() / sr.abs()).max().item()
+            ok = eq == 0 and es <= 1e-6 and q.dtype == torch.int8 and tuple(s.shape) == (rows, 1)
+            # the wire codec's numpy mirror (host IEEE arithmetic) on up to
+            # 4096 rows, the ties, zero and +-absmax rows among them
+            n = min(rows, 4096)
+            qn, sn = cq.quantize_int8_np(x[:n].float().cpu().numpy())
+            ok = ok and np.array_equal(q[:n].cpu().numpy(), qn) and np.array_equal(
+                s[:n].cpu().numpy(), sn)
+            deq = ops.dequantize_int8(q, s)
+            deq_bf = ops.dequantize_int8(q, s, torch.bfloat16)
+            ed = max_err(deq, ops.dequantize_int8(qr, sr, impl="ref"))
+            ed_bf = max_err(deq_bf, ops.dequantize_int8(qr, sr, torch.bfloat16, impl="ref"))
+            absmax = x.float().abs().amax(-1, keepdim=True)
+            within = bool(((deq - x.float()).abs() <= absmax / 254 + absmax * 2.0 ** -22).all())
+            check(ok and ed == 0 and ed_bf == 0 and within,
+                  f"int8 codec ({rows}, {cols}) {dt}: q max diff {eq}, scale rel err {es:.1e}, "
+                  f"dequantize err {ed:.1e} (bf16 out {ed_bf:.1e}), round trip within "
+                  f"absmax/254")
+            if (rows, cols) == (81920, 8192) and dt == torch.float32:
+                errs = {"quantize_int8": float(eq), "dequantize_int8": ed}
+            del x, q, s, qr, sr, deq, deq_bf
+        del base
+    # leaf helpers on a strided (non-contiguous) leaf and a rank-1 leaf
+    g = torch.randn(8, 6, 40, generator=gen, device=dev).transpose(0, 1)
+    for leaf in (g, g[0, :, 0]):
+        q, s = cq.quantize_leaf(leaf)
+        qr, sr = cq.quantize_leaf(leaf, impl="ref")
+        back = cq.dequantize_leaf(q, s, leaf.shape, leaf.dtype)
+        check(bool((q == qr).all()) and bool((s == sr).all()) and back.shape == leaf.shape,
+              f"quantize_leaf/dequantize_leaf on a {tuple(leaf.shape)} "
+              f"{'strided' if not leaf.is_contiguous() else 'contiguous'} leaf")
+    torch.cuda.empty_cache()
+    return errs
+
+
+def quant_times(gen, dev, errs: dict) -> dict:
+    """Kernel, plain and yardstick times at w_gate's shape (81,920 x 8192
+    fp32, the main shape) and wq's (2,621,440 x 64, the narrow one)."""
+    from repro_torch.kernels import comm_quant as cq
+
+    rows = {}
+    for shape in ((81920, 8192), (2621440, 64)):
+        x = torch.randn(*shape, generator=gen, device=dev)
+        q, s = cq.quantize_int8_cuda(x)
+        n, N = x.numel(), shape[0]
+        bq, wq = bound_ms(4 * n + n + 4 * N, 0, torch.float32)
+        bd, wd = bound_ms(n + 4 * N + 4 * n, 0, torch.float32)
+        r = {"quantize_int8": dict(
+                 shape=f"x {shape} f32", ms=time_ms(lambda: cq.quantize_int8_cuda(x), iters=10),
+                 plain_ms=time_ms(lambda: cq.quantize_int8_plain(x), iters=10),
+                 library_ms=None, bound_ms=bq, bound_by=wq),
+             "dequantize_int8": dict(
+                 shape=f"q {shape} int8", ms=time_ms(lambda: cq.dequantize_int8_cuda(q, s), iters=10),
+                 plain_ms=time_ms(lambda: cq.dequantize_int8_plain(q, s), iters=10),
+                 library_ms=time_ms(lambda: torch.mul(q, s), iters=10), bound_ms=bd, bound_by=wd)}
+        xb = x.to(torch.bfloat16)
+        bf_ms = time_ms(lambda: cq.quantize_int8_cuda(xb), iters=10)
+        for name, v in r.items():
+            lib = "none" if v["library_ms"] is None else f"{v['library_ms']:.4f} ms"
+            print(f"  {name} [{v['shape']}]: kernel {v['ms']:.4f} ms, plain {v['plain_ms']:.4f} ms, "
+                  f"yardstick {lib}, bound {v['bound_ms']:.5f} ms ({v['bound_by']})", flush=True)
+        print(f"  quantize_int8 [x {shape} bf16]: kernel {bf_ms:.4f} ms", flush=True)
+        if shape == (81920, 8192):
+            rows = r
+        del x, xb, q, s
+        torch.cuda.empty_cache()
+    for name, r in rows.items():
+        r["max_abs_err"] = errs[name]
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 3b: gradients through the kernels' autograd.Functions
+# ---------------------------------------------------------------------------
+
+def grad_checks(gen, dev) -> None:
+    """Input and parameter gradients through each kernel's
+    ``autograd.Function`` (forward: the kernel; backward: the plain version
+    recomputed) against the plain path's on the same inputs and upstream
+    gradient.  The backward computes the same plain function on the same
+    inputs, so the gradients may differ only by reduction order: within
+    1e-5 (fp32) or 1e-2 (bf16, one ulp) of each gradient's max magnitude.
+    Each kernel must launch once per forward, and the output must carry a
+    grad_fn."""
+    from repro_torch.kernels import ops
+
+    print("phase 3b: gradients through the kernels vs the plain path on the card", flush=True)
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def leaf(t):
+        return t.detach().clone().requires_grad_()
+
+    def compare(name, fn, inputs, dt, kernel):
+        outs_k, outs_p = [], []
+        for impl, outs in ((None, outs_k), ("ref", outs_p)):
+            ins = [leaf(t) for t in inputs]
+            ops.reset_launch_counts()
+            y = fn(*ins, impl=impl)
+            y = y[0] if isinstance(y, tuple) else y
+            launched = ops.launch_counts()[kernel]
+            gy = torch.randn(y.shape, generator=torch.Generator(device=dev).manual_seed(7),
+                             device=dev).to(y.dtype)
+            gs = torch.autograd.grad(y, ins, gy)
+            outs.append((y, launched, gs))
+        (yk, nk, gk), (yp, np_, gp) = outs_k[0], outs_p[0]
+        tol = 1e-2 if dt == bf16 else 1e-5
+        errs = [max_err(a, b) / (b.float().abs().max().item() + 1e-30) for a, b in zip(gk, gp)]
+        ok = (nk == 1 and np_ == 0 and yk.grad_fn is not None
+              and all(a.dtype == t.dtype and a.shape == t.shape for a, t in zip(gk, inputs))
+              and max(errs) <= tol)
+        check(ok, f"{name} {dt}: grads through the kernel vs plain, rel max err "
+                  f"{', '.join(f'{e:.1e}' for e in errs)} (tol {tol:g})")
+
+    def randn(*shape, dtype=f32):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    for shape, dt in [((8, 256, 2048), bf16), ((8, 256, 2048), f32), ((3, 37, 16), f32)]:
+        compare(f"rmsnorm x {shape}", lambda x, s, impl: ops.rmsnorm(x, s, impl=impl),
+                [randn(*shape, dtype=dt), randn(shape[-1])], dt, "rmsnorm")
+    for (B, H, K, S, D), dt in [((8, 32, 8, 256, 64), bf16), ((8, 32, 8, 256, 64), f32),
+                                ((2, 4, 2, 37, 16), f32), ((2, 4, 2, 37, 16), bf16)]:
+        compare(f"flash_attention B{B} H{H} K{K} S{S} D{D}",
+                lambda q, k, v, impl: ops.flash_attention(q, k, v, impl=impl),
+                [randn(B, S, H, D, dtype=dt), randn(B, S, K, D, dtype=dt),
+                 randn(B, S, K, D, dtype=dt)], dt, "flash_attention")
+    for shape, dt in [(SSD_MAIN, bf16), (SSD_MAIN, f32), ((2, 37, 8, 16, 1, 16, 8), f32)]:
+        B, S, H, P, G, N, L = shape
+        x, dtt, A, Bm, Cm = ssd_inputs(gen, dev, B, S, H, P, G, N, dt)
+        big = torch.cat([x.flatten(2), Bm.flatten(2), Cm.flatten(2)], dim=-1)
+        hp, gn = H * P, G * N
+
+        def scan(big, dtt, A, impl, L=L, H=H, P=P, G=G, N=N, hp=hp, gn=gn):
+            # x, B and C as strided views of one tensor, as the model passes
+            # them; the loss uses y only, so the final state's grad is None
+            return ops.ssd_scan(big[..., :hp].unflatten(-1, (H, P)), dtt, A,
+                                big[..., hp:hp + gn].unflatten(-1, (G, N)),
+                                big[..., hp + gn:].unflatten(-1, (G, N)), chunk=L, impl=impl)
+        compare(f"ssd_scan B{B} S{S} H{H} P{P} N{N} L{L}", scan, [big, dtt, A], dt, "ssd_scan")
+    ops.reset_launch_counts()
+
+
+# ---------------------------------------------------------------------------
 # phase 4: small model on the card against the plain versions on the CPU
 # ---------------------------------------------------------------------------
 
@@ -333,6 +559,41 @@ def small_model_check(phase: str, arch: str, seed: int, dev) -> None:
               f"prefill + decode == forward on the card: max abs err {max_err(inc, full):.3e} (atol 2e-3)")
 
 
+def small_train_check(arch: str, seed: int, dev) -> None:
+    """Three train steps of reduced ``arch`` (float32) on the card through
+    the kernels (backward: the plain versions recomputed) and on the CPU
+    through the plain versions, from the same params and batches.
+    Tolerances: losses within 1e-4 relative (fp32 sums in another order);
+    params within 1e-5 on average, and every element within 2 * lr * 3
+    steps, since Adam moves each parameter by about lr * sign(g) and a
+    near-zero gradient's sign may differ between the card and the CPU."""
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.data.pipeline import make_pipeline
+    from repro_torch.models import model as M
+    from repro_torch.optim.optimizer import OptimizerConfig, init_opt_state
+    from repro_torch.train.steps import make_train_step
+    from repro_torch.utils import tree_leaves, tree_map
+
+    print(f"phase 4c: reduced {arch} (float32), 3 train steps on the card vs the CPU", flush=True)
+    cfg = reduced(get_arch(arch))
+    ocfg = OptimizerConfig(lr=1e-3, warmup_steps=1, total_steps=10, schedule="const")
+    data = make_pipeline(cfg.vocab_size, 16, 4, seed=seed)
+    p_cpu = M.init_params(cfg, seed, device="cpu")
+    p_gpu = tree_map(lambda t: t.to(dev, copy=True), p_cpu)   # updated in place: own copies
+    o_cpu, o_gpu = init_opt_state(ocfg, p_cpu), init_opt_state(ocfg, p_gpu)
+    step = make_train_step(cfg, ocfg)
+    for i in range(1, 4):                      # step 0 has lr 0 under warmup
+        _, _, m_cpu = step(p_cpu, o_cpu, data.batch(i), i)
+        _, _, m_gpu = step(p_gpu, o_gpu, data.batch(i), i)
+        lc, lg = float(m_cpu["loss"]), float(m_gpu["loss"])
+        check(abs(lc - lg) <= 1e-4 * abs(lc), f"step {i}: loss card {lg:.6f} vs CPU {lc:.6f}")
+    diffs = torch.cat([(a.cpu() - b).abs().flatten() for a, b in
+                       zip(tree_leaves(p_gpu), tree_leaves(p_cpu))])
+    check(diffs.mean().item() <= 1e-5 and diffs.max().item() <= 2 * ocfg.lr * 3,
+          f"params after 3 steps: mean abs diff {diffs.mean().item():.2e} (tol 1e-5), "
+          f"max {diffs.max().item():.2e} (tol {2 * ocfg.lr * 3:g})")
+
+
 # ---------------------------------------------------------------------------
 # phases 5 and 6: the main paths at full width
 # ---------------------------------------------------------------------------
@@ -344,11 +605,12 @@ def expected_counts(cfg) -> dict:
     or score; decode attention once per layer per step (an SSM decode step
     is one plain ``ssd_step``)."""
     L, n_fwd = cfg.num_layers, 1 + N_DECODE + 1
+    quant = {"quantize_int8": 0, "dequantize_int8": 0}     # serving quantizes on the host
     if cfg.family == "ssm":
         return {"rmsnorm": (2 * L + 1) * n_fwd, "flash_attention": 0, "decode_attention": 0,
-                "ssd_scan": 2 * L}
+                "ssd_scan": 2 * L, **quant}
     return {"rmsnorm": (2 * L + 1) * n_fwd, "flash_attention": 2 * L,
-            "decode_attention": L * N_DECODE, "ssd_scan": 0}
+            "decode_attention": L * N_DECODE, "ssd_scan": 0, **quant}
 
 
 def main_path(phase: str, arch: str, seq: int, seed: int, dev, profile: bool = False) -> dict:
@@ -450,12 +712,199 @@ def main_path(phase: str, arch: str, seq: int, seed: int, dev, profile: bool = F
         dest.shutdown()
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the training path at full width
+# ---------------------------------------------------------------------------
+
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 8, 256, 4
+
+
+def expected_train_counts(cfg) -> dict:
+    """Kernel launches of one training step of a dense model under remat:
+    each block's two rmsnorms and its attention run in the forward and
+    again when backward recomputes the block; the final norm runs once
+    outside the blocks; the backward itself launches nothing (it
+    recomputes the plain versions)."""
+    L = cfg.num_layers
+    return {"rmsnorm": 2 * 2 * L + 1, "flash_attention": 2 * L, "decode_attention": 0,
+            "ssd_scan": 0, "quantize_int8": 0, "dequantize_int8": 0}
+
+
+def row_bound(g):
+    """Per-row bound of the int8 round trip, shaped like ``leaf_rows(g)``:
+    absmax_row / 254, plus the rounding of the result to ``g``'s dtype (half
+    a bf16 ulp, at most absmax_row * 2**-8) or fp32 (absmax_row * 2**-22)."""
+    from repro_torch.kernels.comm_quant import leaf_rows
+
+    absmax = leaf_rows(g).float().abs().amax(-1, keepdim=True)
+    return absmax / 254 + absmax * (2.0 ** -8 if g.dtype == torch.bfloat16 else 2.0 ** -22)
+
+
+def train_path(seed: int, dev, profile: bool = False) -> dict:
+    import os
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import make_pipeline
+    from repro_torch.distributed.collectives import (ReduceGroups, compressed_grad_allreduce,
+                                                     dcn_wire_bytes)
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.comm_quant import leaf_rows, quantize_leaf
+    from repro_torch.optim.compression import ErrorFeedback, compress_tree, decompress_tree
+    from repro_torch.optim.optimizer import OptimizerConfig, apply_updates
+    from repro_torch.train.steps import loss_and_grads
+    from repro_torch.train.trainer import Trainer
+    from repro_torch.utils import tree_leaves, tree_leaves_with_path, keystr
+
+    cfg = get_arch("granite-3-2b")
+    L = cfg.num_layers
+    print(f"phase 7: training path, {cfg.name} at full width ({L} layers, d_model {cfg.d_model}, "
+          f"{cfg.param_dtype}, remat={cfg.remat}, {cfg.optimizer}), B {TRAIN_B} S {TRAIN_S}",
+          flush=True)
+    check(cfg.remat and cfg.param_dtype == "bfloat16" and cfg.optimizer == "adamw",
+          "granite-3-2b as registered: bf16, remat, adamw")
+    ocfg = OptimizerConfig(name=cfg.optimizer, lr=3e-4, warmup_steps=2, total_steps=100)
+    data = make_pipeline(cfg.vocab_size, TRAIN_S, TRAIN_B, seed=seed)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    print(f"  device memory allocated before phase 7: {torch.cuda.memory_allocated() / 1e9:.2f} GB",
+          flush=True)
+    peaks = {}
+    counts = {}
+
+    # 7.1: Trainer steps, launch counts per step
+    trainer = Trainer(cfg, ocfg, data, seed=seed, device=dev)
+    ops.reset_launch_counts()
+    rep = trainer.run(TRAIN_STEPS)
+    counts["trainer"] = ops.launch_counts()
+    want = {k: v * TRAIN_STEPS for k, v in expected_train_counts(cfg).items()}
+    print(f"  Trainer.run({TRAIN_STEPS}): losses {[round(x, 5) for x in rep.losses]}, "
+          f"wall {rep.wall_s:.2f} s (init included); launches {counts['trainer']}", flush=True)
+    check(len(rep.losses) == TRAIN_STEPS and all(np.isfinite(rep.losses)),
+          f"{TRAIN_STEPS} finite losses")
+    check(counts["trainer"] == want, f"launch counts match the structure per step x "
+                                     f"{TRAIN_STEPS}: {want}")
+    params, opt = trainer._final["params"], trainer._final["opt"]
+    del trainer
+    step_fn = make_step_timer(cfg, ocfg)
+    walls = [step_fn(params, opt, data.batch(TRAIN_STEPS + i), TRAIN_STEPS + i)
+             for i in range(2)]
+    print(f"  train step wall (host clock, synchronized): "
+          f"{', '.join(f'{w * 1e3:.1f} ms' for w in walls)}", flush=True)
+    if profile:
+        batch = data.batch(TRAIN_STEPS + 2)
+        profile_call("granite-3-2b train step",
+                     lambda: step_fn(params, opt, batch, TRAIN_STEPS + 2))
+    peaks["train steps"] = peak_and_reset()
+
+    # 7.2: one data-parallel step through the compressed all-reduce
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in data.batch(TRAIN_STEPS + 3).items()}
+    ops.reset_launch_counts()
+    loss, _, grads = loss_and_grads(cfg, params, batch)
+    store_dir = tempfile.mkdtemp(prefix="chip_smoke_nccl_")
+    dist.init_process_group("nccl", store=dist.FileStore(os.path.join(store_dir, "store"), 1),
+                            rank=0, world_size=1)
+    try:
+        groups = ReduceGroups(fast=None, slow=dist.group.WORLD)
+        compressed_grad_allreduce(groups, {"warm": torch.ones(4, 4, device=dev)})
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        reduced_g = compressed_grad_allreduce(groups, grads)
+        torch.cuda.synchronize()
+        exchange_s = time.perf_counter() - t0
+        counts["exchange"] = ops.launch_counts()
+    finally:
+        dist.destroy_process_group()
+    n_leaves = len(tree_leaves(grads))
+    wire_c, wire_f = dcn_wire_bytes(grads, compressed=True), dcn_wire_bytes(grads, compressed=False)
+    wire_rows = sum(leaf_rows(g).numel() + 4 * leaf_rows(g).shape[0] for g in tree_leaves(grads))
+    print(f"  compressed exchange: {exchange_s * 1e3:.1f} ms for {n_leaves} leaves; int8 wire "
+          f"{wire_rows / 1e9:.4f} GB (dcn_wire_bytes {wire_c / 1e9:.4f} GB) vs fp32 "
+          f"{wire_f / 1e9:.4f} GB; launches {counts['exchange']}", flush=True)
+    check(counts["exchange"]["quantize_int8"] == n_leaves == 11
+          and counts["exchange"]["dequantize_int8"] == n_leaves,
+          f"the exchange quantizes and dequantizes each of the {n_leaves} leaves once")
+    worst = 0.0
+    for (path, g), r in zip(tree_leaves_with_path(grads), tree_leaves(reduced_g)):
+        err = (leaf_rows(r).float() - leaf_rows(g).float()).abs()
+        ok = bool((err <= row_bound(g)).all()) and r.dtype == g.dtype and r.shape == g.shape
+        check(ok, f"reduced {keystr(path)} {tuple(g.shape)} within its per-row bound of the "
+                  f"raw gradient (max abs err {err.max().item():.3e})")
+        worst = max(worst, err.max().item())
+    wg = grads["blocks"]["layers"][0]["mlp"]["w_gate"]
+    q, s = quantize_leaf(wg)
+    qr, sr = ops.quantize_int8(leaf_rows(wg), impl="ref")
+    check(bool((q == qr).all()) and bool((s == sr).all()),
+          f"q of w_gate's gradient {tuple(wg.shape)} (bf16, read directly) equals the plain version's")
+    del q, s, qr, sr
+    _, _, om = apply_updates(ocfg, reduced_g, opt, params, TRAIN_STEPS + 3)
+    check(np.isfinite(float(loss)) and np.isfinite(float(om["grad_norm"]))
+          and all(bool(torch.isfinite(p).all()) for p in tree_leaves(params)),
+          f"data-parallel step: loss {float(loss):.5f}, grad_norm {float(om['grad_norm']):.4f}, "
+          f"params finite after apply_updates")
+    del reduced_g
+    peaks["data-parallel step and its checks"] = peak_and_reset()
+
+    # 7.3: error feedback and compress_tree / decompress_tree
+    ops.reset_launch_counts()
+    residual = ErrorFeedback.init(grads)
+    out, residual = ErrorFeedback.compress(grads, residual)
+    ef = ops.launch_counts()
+    del out, residual
+    ctree, wire = compress_tree(grads)
+    back = decompress_tree(ctree)
+    counts["compress"] = ops.launch_counts()
+    check(ef["quantize_int8"] == ef["dequantize_int8"] == n_leaves
+          and counts["compress"]["quantize_int8"] == counts["compress"]["dequantize_int8"]
+          == 2 * n_leaves, f"one quantize and one dequantize per leaf per pass "
+                           f"(ErrorFeedback, then compress/decompress): {counts['compress']}")
+    check(wire == wire_rows, f"compress_tree wire bytes {wire} == sum(rows*cols + 4*rows)")
+    within = all(bool(((leaf_rows(b).float() - leaf_rows(g).float()).abs() <= row_bound(g)).all())
+                 for b, g in zip(tree_leaves(back), tree_leaves(grads)))
+    check(within, "decompress_tree(compress_tree(grads)) within the per-row bound")
+    peaks["ErrorFeedback, compress/decompress and checks"] = peak_and_reset()
+    del ctree, back, grads, params, opt
+    print(f"  peak device memory (torch.cuda.max_memory_allocated): "
+          f"{', '.join(f'{k} {v / 1e9:.2f} GB' for k, v in peaks.items())}", flush=True)
+    torch.cuda.empty_cache()
+    return {k: sum(c[k] for c in counts.values()) for k in counts["trainer"]}
+
+
+def peak_and_reset() -> int:
+    peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    return peak
+
+
+def make_step_timer(cfg, ocfg):
+    """One synchronized train step -> its host wall time in seconds."""
+    from repro_torch.train.steps import make_train_step
+
+    step = make_train_step(cfg, ocfg)
+
+    def run(params, opt, batch, i):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(params, opt, batch, i)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+    return run
+
+
 def profile_call(name: str, fn, top: int = 10) -> None:
-    """Where one library call's time goes: host wall time against the sum of
-    device kernel time (one stream, so kernels do not overlap), the launch
-    count, and the kernels that take the most device time."""
+    """Where one call's time goes: host wall time against the sum of device
+    kernel time (one stream, so kernels do not overlap), the launch count,
+    the device time under the training step's profiler ranges (the
+    plain-recompute backward, the optimizer update), and the kernels that
+    take the most device time."""
+    from repro_torch.kernels.autograd import BACKWARD_SPAN
+    from repro_torch.train.steps import UPDATE_SPAN
+
     fn()                                            # warm: allocator, cuBLAS
-    wall_ms, kernels = device_events(fn)
+    wall_ms, kernels, events = device_events(fn)
     busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
     by_name: dict = {}
     for e in kernels:
@@ -464,6 +913,13 @@ def profile_call(name: str, fn, top: int = 10) -> None:
     print(f"  profile {name}: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms "
           f"({100 * busy_ms / wall_ms:.1f}%, idle {100 - 100 * busy_ms / wall_ms:.1f}%), "
           f"{len(kernels)} device events", flush=True)
+    for span in (BACKWARD_SPAN, UPDATE_SPAN):
+        ranges = [e for e in events if e.name == span
+                  and e.device_type == torch.autograd.DeviceType.CPU]
+        if ranges:
+            span_ms = sum(e.device_time_total for e in ranges) / 1e3
+            print(f"    {span_ms:9.3f} ms  {len(ranges):5d}x  kernels under {span} "
+                  f"({100 * span_ms / busy_ms:.1f}% of device busy)", flush=True)
     for kname, (n, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]:
         print(f"    {t:9.3f} ms  {n:5d}x  {kname[:100]}", flush=True)
 
@@ -472,7 +928,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
-                    help="trace one prefill and one decode of the main path (torch.profiler)")
+                    help="trace one prefill and one decode of each served model and one "
+                         "training step (torch.profiler)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on the card",
@@ -499,18 +956,27 @@ def main(argv=None) -> int:
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
     rows = kernel_times(gen, dev, kernel_checks(gen, dev))
+    rows.update(quant_times(gen, dev, quant_checks(gen, dev)))
+    grad_checks(gen, dev)
     small_model_check("4", "granite-3-2b", args.seed, dev)
     small_model_check("4b", "mamba2-130m", args.seed, dev)
-    dense = main_path("5", "granite-3-2b", MAIN_S, args.seed, dev, profile=args.profile)
-    ssm = main_path("6", "mamba2-130m", SSM_S, args.seed, dev, profile=args.profile)
-    counts = {name: dense[name] + ssm[name] for name in dense}   # both main paths' launches
+    small_train_check("granite-3-2b", args.seed, dev)
+    small_train_check("mamba2-130m", args.seed, dev)
+    paths = [main_path("5", "granite-3-2b", MAIN_S, args.seed, dev, profile=args.profile),
+             main_path("6", "mamba2-130m", SSM_S, args.seed, dev, profile=args.profile),
+             train_path(args.seed, dev, profile=args.profile)]
+    counts = {name: sum(p[name] for p in paths) for name in paths[0]}   # every main path's
 
     replaces = {"rmsnorm": "src/repro/kernels/rmsnorm.py:22",
                 "flash_attention": "src/repro/kernels/flash_attention.py:72",
                 "decode_attention": "src/repro/kernels/decode_attention.py:67",
-                "ssd_scan": "src/repro/kernels/ssd_scan.py:72"}
+                "ssd_scan": "src/repro/kernels/ssd_scan.py:72",
+                "quantize_int8": "src/repro/kernels/comm_quant.py:89",
+                "dequantize_int8": "src/repro/kernels/comm_quant.py:112"}
+    source = {name: name for name in replaces} | {"quantize_int8": "comm_quant",
+                                                  "dequantize_int8": "comm_quant"}
     kernels = [{"name": name, "route": "cuda",
-                "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+                "source": f"src/repro_torch/kernels/csrc/{source[name]}.cu",
                 "replaces": replaces[name], "launches": counts[name],
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],

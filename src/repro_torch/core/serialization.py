@@ -94,6 +94,10 @@ import zlib
 
 from repro_torch.analysis import sanitize as _sanitize
 from repro_torch.core.memory import BufferLease
+# one quantization implementation in the port: the int8 codec quantizes
+# through the kernels module's numpy leaf helpers, as the gradient
+# compression does through its kernels
+from repro_torch.kernels.comm_quant import dequantize_int8_np, quantize_int8_np
 from repro_torch.utils import BF16Array, dtype_name
 
 try:  # container images may lack zstandard; gate it (no new deps)
@@ -255,31 +259,6 @@ def _np_dtype(name: str):
 
 def _as_leaf(arr: np.ndarray, name: str) -> np.ndarray:
     return arr.view(BF16Array) if name == "bfloat16" else arr
-
-
-# ---------------------------------------------------------------------------
-# int8 wire codec: numpy copy of the JAX package's comm_quant leaf helpers
-# (scale = max(absmax_row, 1e-12) / 127, q = clip(rint(x / scale), +-127))
-# ---------------------------------------------------------------------------
-
-def leaf_rows(x):
-    """Canonical 2-D per-row view of a leaf (rank 0/1 becomes one row)."""
-    return x.reshape(-1, x.shape[-1]) if x.ndim >= 2 else x.reshape(1, -1)
-
-
-def quantize_int8_np(x) -> tuple[np.ndarray, np.ndarray]:
-    """``x`` (any rank) -> ``(q int8 (rows, cols), scale f32 (rows, 1))``."""
-    flat = np.ascontiguousarray(leaf_rows(np.asarray(x)), dtype=np.float32)
-    absmax = np.max(np.abs(flat), axis=1, keepdims=True) if flat.size \
-        else np.zeros((flat.shape[0], 1), np.float32)
-    scale = np.maximum(absmax, 1e-12) / 127.0
-    q = np.clip(np.rint(flat / scale), -127, 127).astype(np.int8)
-    return q, scale.astype(np.float32)
-
-
-def dequantize_int8_np(q, scale, dtype=np.float32) -> np.ndarray:
-    """Inverse of :func:`quantize_int8_np` (still (rows, cols))."""
-    return (np.asarray(q).astype(np.float32) * np.asarray(scale)).astype(dtype)
 
 
 # ---------------------------------------------------------------------------

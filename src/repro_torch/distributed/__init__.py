@@ -1,0 +1,1 @@
+"""Collectives over ``torch.distributed`` (NCCL on the card, gloo on the CPU)."""

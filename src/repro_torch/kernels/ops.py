@@ -8,19 +8,29 @@ fallback from CUDA to the plain version.  Checks that hold a kernel against
 its plain version on the card force the plain one with ``impl="ref"`` or
 :func:`force_impl`; the main path never does.  Each kernel module holds the
 CUDA wrapper (``*_cuda``, which counts its launches) and the plain version
-(``*_plain``, from ``kernels/ref.py``).
+(``*_plain``, from ``kernels/ref.py``).  Where autograd records the call
+(an input requires grad), ``rmsnorm``, ``flash_attention`` and ``ssd_scan``
+on the card go through :class:`~repro_torch.kernels.autograd.KernelFunction`:
+forward through the kernel, backward through the recomputed plain version.
 """
 from __future__ import annotations
 
 import contextlib
 
+import torch
+
+from repro_torch.kernels import comm_quant as _cq
 from repro_torch.kernels import decode_attention as _dec
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import rmsnorm as _rms
 from repro_torch.kernels import ssd_scan as _ssd
+from repro_torch.kernels.autograd import KernelFunction, needs_grad
 
-_KERNELS = {"rmsnorm": _rms, "flash_attention": _fa, "decode_attention": _dec,
-            "ssd_scan": _ssd}
+# kernel name -> (module, the module's launch counter)
+_KERNELS = {"rmsnorm": (_rms, "launches"), "flash_attention": (_fa, "launches"),
+            "decode_attention": (_dec, "launches"), "ssd_scan": (_ssd, "launches"),
+            "quantize_int8": (_cq, "quantize_launches"),
+            "dequantize_int8": (_cq, "dequantize_launches")}
 _forced: str | None = None
 
 
@@ -49,23 +59,34 @@ def _use_kernel(x, impl: str | None) -> bool:
 
 
 def launch_counts() -> dict[str, int]:
-    return {name: mod.launches for name, mod in _KERNELS.items()}
+    return {name: getattr(mod, attr) for name, (mod, attr) in _KERNELS.items()}
 
 
 def reset_launch_counts() -> None:
-    for mod in _KERNELS.values():
-        mod.launches = 0
+    for mod, attr in _KERNELS.values():
+        setattr(mod, attr, 0)
 
 
 # ---------------------------------------------------------------------------
 
 def flash_attention(q, k, v, *, causal: bool = True, impl: str | None = None):
     """Model layout q: (B,S,H,D), k/v: (B,T,K,D) -> (B,S,H,D)."""
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     if not _use_kernel(q, impl):
-        return _fa.flash_attention_plain(qt, kt, vt, causal=causal).transpose(1, 2)
+        return _flash_plain(q, k, v, causal=causal)
+    if needs_grad(q, k, v):
+        return KernelFunction.apply(_flash_kernel, _flash_plain, {"causal": causal}, q, k, v)
+    return _flash_kernel(q, k, v, causal=causal)
+
+
+def _flash_plain(q, k, v, *, causal):
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    return _fa.flash_attention_plain(qt, kt, vt, causal=causal).transpose(1, 2)
+
+
+def _flash_kernel(q, k, v, *, causal):
     out = q.new_empty(q.shape)
-    _fa.flash_attention_cuda(qt, kt, vt, causal=causal, out=out.transpose(1, 2))
+    _fa.flash_attention_cuda(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                             causal=causal, out=out.transpose(1, 2))
     return out
 
 
@@ -83,6 +104,9 @@ def decode_attention(q, k, v, kv_len, *, impl: str | None = None):
 def rmsnorm(x, scale, *, eps: float = 1e-6, impl: str | None = None):
     if not _use_kernel(x, impl):
         return _rms.rmsnorm_plain(x, scale, eps=eps)
+    if needs_grad(x, scale):
+        return KernelFunction.apply(_rms.rmsnorm_cuda, _rms.rmsnorm_plain, {"eps": eps},
+                                    x, scale)
     return _rms.rmsnorm_cuda(x, scale, eps=eps)
 
 
@@ -96,4 +120,22 @@ def ssd_scan(x, dt, A, Bm, Cm, *, chunk: int = 256, impl: str | None = None):
     L = min(chunk, S) if S % min(chunk, S) == 0 else chunk
     if not _use_kernel(x, impl):
         return _ssd.ssd_scan_plain(x, dt, A, Bm, Cm, L)
+    if needs_grad(x, dt, A, Bm, Cm):
+        return KernelFunction.apply(_ssd.ssd_scan_cuda, _ssd.ssd_scan_plain, {"chunk": L},
+                                    x, dt, A, Bm, Cm)
     return _ssd.ssd_scan_cuda(x, dt, A, Bm, Cm, chunk=L)
+
+
+def quantize_int8(x, *, impl: str | None = None):
+    """x: (N, D) -> (q int8 (N, D), scale f32 (N, 1)); the kernel reads f32
+    or bf16 (exact in fp32), the plain version casts to fp32."""
+    if not _use_kernel(x, impl):
+        return _cq.quantize_int8_plain(x)
+    return _cq.quantize_int8_cuda(x)
+
+
+def dequantize_int8(q, scale, dtype=torch.float32, *, impl: str | None = None):
+    """q (N, D) int8, scale (N, 1) f32 -> (N, D) ``dtype``."""
+    if not _use_kernel(q, impl):
+        return _cq.dequantize_int8_plain(q, scale, dtype)
+    return _cq.dequantize_int8_cuda(q, scale, dtype)

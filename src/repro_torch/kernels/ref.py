@@ -7,7 +7,8 @@ them on the card.  Ragged ``Sq``/``Sk`` need no padding here: the whole
 score matrix is formed and masked.  ``ssd_scan`` is the chunked algorithm
 the model runs (``models/ssd.py`` binds it as ``ssd_chunked``), not the
 per-step oracle of the JAX package's ``ref.ssd_scan``: the same function,
-without a Python loop over every position on the card.
+without a Python loop over every position on the card.  ``quantize_int8``
+and ``dequantize_int8`` are the per-row int8 codec of ``comm_quant``.
 """
 from __future__ import annotations
 
@@ -51,6 +52,24 @@ def rmsnorm(x, scale, eps: float = 1e-6):
     xf = x.float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+
+
+def quantize_int8(x):
+    """x: (N, D) -> (q int8 (N, D), scale f32 (N, 1)).  Per-row symmetric:
+    ``scale = max(absmax, 1e-12) / 127``, ``q = clip(round(x / scale),
+    +-127)`` with IEEE division and round half to even (``torch.round``)."""
+    xf = x.float()
+    absmax = torch.amax(torch.abs(xf), dim=-1, keepdim=True)
+    # divide by a tensor, not a Python scalar: on CUDA, PyTorch turns a
+    # division by a CPU scalar into a multiplication by its reciprocal,
+    # which is not the IEEE quotient and moves the scale by an ulp
+    scale = torch.clamp(absmax, min=1e-12) / torch.full_like(absmax, 127.0)
+    q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def dequantize_int8(q, scale, dtype=torch.float32):
+    return (q.float() * scale).to(dtype)
 
 
 def repeat_groups(t, rep: int, dim: int):

@@ -3,6 +3,7 @@
 Functions (cfg is static; tensors live on the params' device):
   param_specs(cfg)                       -> ParamSpec tree
   init_params(cfg, seed, device)         -> concrete params
+  abstract_params(cfg)                   -> shapes/dtypes (meta tensors)
   forward_hidden(cfg, params, batch)     -> (h, aux)
   logits_from_hidden(cfg, params, h)     -> (B,S,V) fp32
   loss_fn(cfg, params, batch)            -> (loss, metrics)
@@ -32,6 +33,10 @@ def param_specs(cfg):
 def init_params(cfg, seed: int = 0, device="cuda"):
     return pm.init_params(param_specs(cfg), seed, getattr(torch, cfg.param_dtype),
                           resolve_device(device))
+
+
+def abstract_params(cfg):
+    return pm.abstract_params(param_specs(cfg), getattr(torch, cfg.param_dtype))
 
 
 def forward_hidden(cfg, params, batch):

@@ -77,6 +77,14 @@ def init_params(specs, seed: int, param_dtype=torch.bfloat16, device="cuda"):
     return tree_unflatten(treedef, leaves)
 
 
+def abstract_params(specs, param_dtype=torch.bfloat16):
+    """The spec tree as empty tensors on the ``meta`` device: shapes and
+    dtypes with no storage (a checkpoint template; the reference's
+    ``abstract_params``)."""
+    return tree_map(lambda s: torch.empty(s.shape, dtype=s.dtype or param_dtype, device="meta"),
+                    specs, is_leaf=is_spec)
+
+
 def from_numpy_tree(tree: Any, device="cuda") -> Any:
     """The function that carries weights across: the reference's parameter
     tree (numpy leaves, ml_dtypes bf16 included, or this port's host

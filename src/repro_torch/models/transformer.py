@@ -1,15 +1,17 @@
 """Decoder-only stack (dense and pure-SSM families): a Python loop over the
-stacked block parameters (the reference's ``lax.scan``).  Returns hidden
-states; unembedding and losses live in ``repro_torch.models.model``."""
+stacked block parameters (the reference's ``lax.scan``), with optional remat
+on the train path.  Returns hidden states; unembedding and losses live in
+``repro_torch.models.model``."""
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.blocks import (apply_block, block_specs, decode_cache, num_blocks,
                                        stacked_cache)
 from repro_torch.models.layers import apply_norm, embed_specs, embed_tokens, norm_specs
 from repro_torch.models.params import stack_specs
-from repro_torch.utils import tree_map
+from repro_torch.utils import tree_flatten, tree_map, tree_unflatten
 
 
 def lm_specs(cfg) -> dict:
@@ -29,13 +31,36 @@ def _block(tree, i: int):
     return tree_map(lambda x: x[i], tree)
 
 
+def _unstack(tree) -> list:
+    """Per-block parameter trees: one ``torch.unbind`` per stacked leaf.
+    Indexing ``x[i]`` per block would give each block's gradient its own
+    ``select`` backward, which materialises a zero tensor of the whole
+    stacked leaf; unbind's backward stacks the blocks' gradients once."""
+    leaves, treedef = tree_flatten(tree)
+    per_leaf = [torch.unbind(x, 0) for x in leaves]
+    return [tree_unflatten(treedef, [blocks[i] for blocks in per_leaf])
+            for i in range(len(per_leaf[0]))]
+
+
+def _train_block(cfg, bp, h, positions):
+    return apply_block(cfg, bp, h, positions=positions, mode="train", cache=None)[0]
+
+
 def lm_hidden(cfg, params, tokens):
-    """Train-path forward to final hidden states (B, S, d)."""
+    """Train-path forward to final hidden states (B, S, d).  With
+    ``cfg.remat`` and autograd recording, each block runs under
+    ``torch.utils.checkpoint`` (the reference wraps its scan body in
+    ``jax.checkpoint``): backward recomputes the block's forward, so its
+    kernels launch twice per training step."""
     positions = _positions(tokens)
     h = embed_tokens(cfg, params["embed"], tokens)
-    for i in range(num_blocks(cfg)):
-        h, _ = apply_block(cfg, _block(params["blocks"], i), h,
-                           positions=positions, mode="train", cache=None)
+    remat = cfg.remat and torch.is_grad_enabled()
+    for bp in _unstack(params["blocks"]):
+        if remat:
+            h = checkpoint(_train_block, cfg, bp, h, positions, use_reentrant=False,
+                           preserve_rng_state=False)
+        else:
+            h = _train_block(cfg, bp, h, positions)
     return apply_norm(cfg, params["final_norm"], h)
 
 

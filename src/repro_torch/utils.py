@@ -94,6 +94,31 @@ def tree_unflatten(treedef, leaves) -> Any:
     return build(treedef)
 
 
+def tree_flatten_up_to(treedef, tree: Any) -> list:
+    """The subtrees of ``tree`` at the leaf positions of ``treedef``
+    (``jax.tree_util.PyTreeDef.flatten_up_to``): an optimizer state whose
+    per-parameter entries are themselves dicts flattens to one entry per
+    parameter."""
+    out: list = []
+
+    def walk(td, node):
+        kind = td[0]
+        if kind == "leaf":
+            out.append(node)
+            return
+        if kind == "none":
+            return
+        ch = _children(node)
+        if ch is None or ch[0] != kind or (
+                tuple(ch[1]) if kind == "dict" else len(ch[1])) != td[1]:
+            raise ValueError("tree_flatten_up_to: tree does not match the structure")
+        for sub, kid in zip(td[2], ch[2]):
+            walk(sub, kid)
+
+    walk(treedef, tree)
+    return out
+
+
 def tree_map(fn: Callable, tree: Any, *rest: Any,
              is_leaf: Optional[Callable] = None) -> Any:
     """Map ``fn`` over the leaves of ``tree`` (and the matching leaves of

@@ -161,8 +161,10 @@ def test_cpu_tensors_take_the_plain_versions_and_count_nothing():
     assert torch.equal(ops.decode_attention(q[:, :1], k, k, kv),
                        ref.decode_attention(q[:, 0].reshape(1, 2, 2, 16), k.transpose(1, 2),
                                             k.transpose(1, 2), kv).reshape(1, 1, 4, 16))
+    qi, sc = ops.quantize_int8(x)
+    assert torch.equal(ops.dequantize_int8(qi, sc), ref.dequantize_int8(*ref.quantize_int8(x)))
     assert ops.launch_counts() == {"rmsnorm": 0, "flash_attention": 0, "decode_attention": 0,
-                                   "ssd_scan": 0}
+                                   "ssd_scan": 0, "quantize_int8": 0, "dequantize_int8": 0}
 
 
 def test_kernel_paths_refuse_cpu_tensors():
