@@ -19,8 +19,13 @@
 // (x / scale, never x * (1 / scale)), round half to even (rintf), the scale
 // computed in fp32, and no --use_fast_math.  bf16 input is read directly:
 // its conversion to fp32 is exact, so q and scale equal those of the fp32
-// copy the JAX package quantizes.  Finite inputs are the contract; fmaxf
-// drops a NaN where the plain version would propagate it.
+// copy the JAX package quantizes.
+//
+// Non-finite input behaves as in the plain version: a NaN in a row makes
+// its absmax and scale NaN (max_nan, not fmaxf), an Inf makes the scale Inf,
+// and a NaN quotient (x / NaN, Inf / Inf) gives q = 0, what the JAX
+// package's and the plain version's casts of NaN to int8 give on the CPU.  Such a row dequantizes to NaN, so a
+// non-finite gradient stays non-finite through the compressed exchange.
 #include "common.cuh"
 
 namespace {
@@ -41,12 +46,12 @@ __global__ void quantize_kernel(const T* __restrict__ x, int8_t* __restrict__ q,
     const T* xr = x + r * x_row_stride;
     int8_t* qr = q + r * q_row_stride;
     float m = 0.f;
-    for (int j = lane; j < D; j += 32) m = fmaxf(m, fabsf(to_float(xr[j])));
+    for (int j = lane; j < D; j += 32) m = max_nan(m, fabsf(to_float(xr[j])));
     m = warp_max(m);
-    const float s = fmaxf(m, 1e-12f) / 127.0f;
+    const float s = max_nan(m, 1e-12f) / 127.0f;
     for (int j = lane; j < D; j += 32) {
       const float v = rintf(to_float(xr[j]) / s);
-      qr[j] = (int8_t)fminf(fmaxf(v, -127.f), 127.f);
+      qr[j] = v != v ? (int8_t)0 : (int8_t)fminf(fmaxf(v, -127.f), 127.f);
     }
     if (lane == 0) scale[r] = s;
   }

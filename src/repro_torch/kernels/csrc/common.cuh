@@ -35,9 +35,12 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// max that propagates NaN, as torch.amax and jnp.max do (fmaxf drops it)
+__device__ __forceinline__ float max_nan(float a, float b) { return (a > b || a != a) ? a : b; }
+
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  for (int o = 16; o > 0; o >>= 1) v = max_nan(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
 }
 

@@ -11,7 +11,7 @@ from repro_torch.models.blocks import (apply_block, block_specs, decode_cache, n
                                        stacked_cache)
 from repro_torch.models.layers import apply_norm, embed_specs, embed_tokens, norm_specs
 from repro_torch.models.params import stack_specs
-from repro_torch.utils import tree_flatten, tree_map, tree_unflatten
+from repro_torch.utils import tree_flatten, tree_unflatten
 
 
 def lm_specs(cfg) -> dict:
@@ -27,15 +27,13 @@ def _positions(tokens):
     return torch.arange(S, dtype=torch.int32, device=tokens.device)[None].expand(B, S)
 
 
-def _block(tree, i: int):
-    return tree_map(lambda x: x[i], tree)
-
-
 def _unstack(tree) -> list:
-    """Per-block parameter trees: one ``torch.unbind`` per stacked leaf.
-    Indexing ``x[i]`` per block would give each block's gradient its own
-    ``select`` backward, which materialises a zero tensor of the whole
-    stacked leaf; unbind's backward stacks the blocks' gradients once."""
+    """Per-block trees of parameters or cache: one ``torch.unbind`` per
+    stacked leaf.  Each block's leaf is a view, so a cache written in place
+    through it is written in the stack.  Indexing ``x[i]`` per block would
+    give each block's gradient its own ``select`` backward, which
+    materialises a zero tensor of the whole stacked leaf; unbind's backward
+    stacks the blocks' gradients once."""
     leaves, treedef = tree_flatten(tree)
     per_leaf = [torch.unbind(x, 0) for x in leaves]
     return [tree_unflatten(treedef, [blocks[i] for blocks in per_leaf])
@@ -77,9 +75,8 @@ def lm_prefill(cfg, params, tokens, cache_len: int, *, cache_dtype=torch.bfloat1
     positions = _positions(tokens)
     h = embed_tokens(cfg, params["embed"], tokens)
     cache = stacked_cache(cfg, B, cache_len, h.dtype, h.device)
-    for i in range(num_blocks(cfg)):
-        h, _ = apply_block(cfg, _block(params["blocks"], i), h, positions=positions,
-                           mode="prefill", cache=_block(cache, i))
+    for bp, bc in zip(_unstack(params["blocks"]), _unstack(cache)):
+        h, _ = apply_block(cfg, bp, h, positions=positions, mode="prefill", cache=bc)
     return apply_norm(cfg, params["final_norm"], h), cache
 
 
@@ -93,9 +90,8 @@ def lm_decode_step(cfg, params, cache, tokens, pos):
     positions = pos[:, None] if pos.ndim == 1 else pos.reshape(1, 1).expand(B, 1)
     h = embed_tokens(cfg, params["embed"], tokens)
     cache = decode_cache(cfg, cache, h.dtype)
-    for i in range(num_blocks(cfg)):
-        h, _ = apply_block(cfg, _block(params["blocks"], i), h, positions=positions,
-                           mode="decode", cache=_block(cache, i), pos=pos)
+    for bp, bc in zip(_unstack(params["blocks"]), _unstack(cache)):
+        h, _ = apply_block(cfg, bp, h, positions=positions, mode="decode", cache=bc, pos=pos)
     return apply_norm(cfg, params["final_norm"], h), cache
 
 

@@ -84,6 +84,44 @@ def test_ties_round_half_to_even():
     assert set(np.abs(q[4].numpy()).tolist()) == {127}
 
 
+def _nonfinite(d: int, seed: int = 10) -> np.ndarray:
+    """A row holding one NaN and a row holding +Inf and -Inf, among finite
+    values."""
+    x = np.random.default_rng(seed).standard_normal((2, d)).astype(np.float32)
+    x[0, d // 2] = np.nan
+    x[1, 0], x[1, -1] = np.inf, -np.inf
+    return x
+
+
+@pytest.mark.parametrize("d", [24, 257])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_nonfinite_rows_match_reference(d, dtype):
+    """A NaN row's scale is NaN and an Inf row's is Inf, as the reference's
+    max gives them; each NaN quotient casts to q 0, as in the reference; both
+    rows dequantize to all NaN, so a non-finite gradient stays non-finite
+    through compression.  Finite rows: q equal, scale rtol 1e-6 as above."""
+    x = np.concatenate([_x(3, d), _nonfinite(d)])
+    tx = torch.from_numpy(x).to(getattr(torch, dtype))
+    rx = jnp.asarray(x, getattr(jnp, dtype))
+    tq, ts = ops.quantize_int8(tx)
+    for q, s in (rref.quantize_int8(rx), rops.quantize_int8(rx, impl="pallas")):
+        np.testing.assert_array_equal(tq.numpy(), np.asarray(q))
+        np.testing.assert_allclose(ts.numpy(), np.asarray(s), rtol=1e-6)   # NaN, Inf in place
+    assert np.isnan(ts[3, 0].item()) and ts[4, 0].item() == np.inf and np.all(tq[3:].numpy() == 0)
+    deq = ops.dequantize_int8(tq, ts).numpy()
+    assert np.isnan(deq[3:]).all() and np.isfinite(deq[:3]).all()
+    np.testing.assert_allclose(deq, np.asarray(rref.dequantize_int8(*rref.quantize_int8(rx))),
+                               rtol=1e-6, atol=1e-30)
+    back = TCP.decompress_tree(TCP.compress_tree({"g": tx})[0])["g"]
+    assert back.isnan()[3:].all() and back[:3].isfinite().all()
+    if dtype == "float32":                 # the numpy helpers, bit for bit
+        with np.errstate(invalid="ignore"):
+            nq, ns = TQ.quantize_int8_np(x)
+            rq, rs = RQ.quantize_int8_np(x)
+        assert nq.tobytes() == rq.tobytes() and ns.tobytes() == rs.tobytes()
+        assert nq.tobytes() == tq.numpy().tobytes() and ns.tobytes() == ts.numpy().tobytes()
+
+
 @pytest.mark.parametrize("shape", [(), (37,), (4, 6, 40), (2, 3, 5, 16)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_leaf_helpers_match_reference(shape, dtype):
