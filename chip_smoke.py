@@ -10,10 +10,16 @@ Phases (any failed check exits non-zero):
 2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (timed);
 3. hold each kernel against its plain PyTorch version on the card, at
    granite-3-2b's and mamba2-130m's shapes, head dims 16 and 128, ragged
-   lengths, kv_len 1 and S, S < chunk and S = 1, float32 and bfloat16; time
-   kernel, plain version and the PyTorch yardstick (``F.rms_norm``,
+   lengths, kv_len 1 and S, S < chunk and S = 1, float32 and bfloat16; flash
+   attention also at the training shape (B 8, S 256) and a 1000-token ragged
+   prompt at head dim 128, decode attention also at B 8, a 4096-slot cache,
+   kv_len on a split boundary and one past it, G 1 and 8, each attention
+   kernel called twice for bit-identical output; time kernel, plain version
+   and the PyTorch yardstick (``F.rms_norm``,
    ``F.scaled_dot_product_attention``, timed only, never called by the port;
-   no single PyTorch call computes the SSD scan) at the main paths' shapes;
+   no single PyTorch call computes the SSD scan) at the main paths' shapes,
+   flash also at the training shape and decode also at S 4096, with each
+   attention wrapper's host time per call;
    the int8 quantize/dequantize kernels at every gradient leaf shape of
    granite-3-2b and mamba2-130m (fp32 and bf16 input), with rows that tie
    at k + 0.5, all-zero rows, rows of +-absmax and rows holding NaN or Inf:
@@ -73,6 +79,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 HBM_BYTES_PER_S = 3.35e12             # H100 SXM device memory
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}   # dense, no sparsity
 MAIN_B, MAIN_S, CACHE_LEN, N_DECODE = 2, 128, 256, 8
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 8, 256, 4
+LONG_CACHE, LONG_KV = 4096, 4000       # decode at a long cache
 SSM_S = 1024                          # mamba2-130m prompt: four chunks of 256
 # mamba2-130m's scan: (B, S, H, P, G, N, chunk)
 SSD_MAIN = (MAIN_B, SSM_S, 24, 64, 1, 128, 256)
@@ -122,8 +130,13 @@ def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
         for _ in range(iters):
             fn()
 
-    _, events, _ = device_events(loop)
-    return sum(e.time_range.elapsed_us() for e in events) / 1e3 / iters
+    # every call launches the same kernels, so a trace whose count is not a
+    # multiple of the calls lost events (seen once): take it again
+    for _ in range(3):
+        _, events, _ = device_events(loop)
+        if events and len(events) % iters == 0:
+            return sum(e.time_range.elapsed_us() for e in events) / 1e3 / iters
+    raise CheckFailed(f"the profiler saw {len(events)} kernel events for {iters} calls")
 
 
 def bound_ms(nbytes: int, flops: float, dtype) -> tuple[float, str]:
@@ -170,25 +183,41 @@ def kernel_checks(gen, dev) -> dict:
         check(bool(tol.all()), f"rmsnorm {shape} {dt} scale {sdt}: max abs err {e:.3e}")
         if shape == (MAIN_B, MAIN_S, 2048) and dt == bf16:
             main_err["rmsnorm"] = e
-    # flash: atol 2e-5 in f32, 2e-2 in bf16 (test_kernels.py)
+    # flash: atol 2e-5 in f32, 2e-2 in bf16 (test_kernels.py); bf16 runs the
+    # tensor-core kernel, f32 the CUDA-core one.  Serving and training shapes,
+    # a long ragged prompt, head dims 16 and 128, Sq != Sk (the causal
+    # diagonal of packed query heads), non-causal; two calls bit-identical
     for (B, H, K, Sq, Sk, D), dt, causal in [
             ((MAIN_B, 32, 8, MAIN_S, MAIN_S, 64), bf16, True),
             ((MAIN_B, 32, 8, MAIN_S, MAIN_S, 64), f32, True),
-            ((1, 4, 2, 64, 64, 16), f32, True), ((1, 8, 2, 128, 128, 128), f32, True),
-            ((1, 8, 2, 128, 128, 128), bf16, False), ((2, 4, 2, 77, 77, 64), f32, True),
-            ((1, 4, 2, 37, 53, 64), f32, False), ((1, 4, 1, 19, 45, 16), bf16, True)]:
+            ((TRAIN_B, 32, 8, TRAIN_S, TRAIN_S, 64), bf16, True),
+            ((1, 32, 8, 1000, 1000, 128), bf16, True),
+            ((1, 4, 2, 64, 64, 16), f32, True), ((1, 4, 2, 64, 64, 16), bf16, True),
+            ((1, 4, 2, 64, 64, 16), bf16, False), ((1, 8, 2, 128, 128, 128), f32, True),
+            ((1, 8, 2, 128, 128, 128), bf16, True), ((1, 8, 2, 128, 128, 128), bf16, False),
+            ((2, 4, 2, 77, 77, 64), f32, True), ((2, 4, 2, 77, 77, 64), bf16, True),
+            ((1, 4, 2, 37, 53, 64), f32, False), ((1, 4, 2, 37, 53, 64), bf16, True),
+            ((1, 4, 2, 37, 53, 64), bf16, False), ((1, 4, 1, 19, 45, 16), bf16, True),
+            ((1, 4, 1, 19, 45, 16), f32, True), ((1, 6, 2, 50, 70, 128), bf16, True)]:
         q, k, v = randn(B, Sq, H, D, dtype=dt), randn(B, Sk, K, D, dtype=dt), randn(B, Sk, K, D, dtype=dt)
         got = ops.flash_attention(q, k, v, causal=causal)
+        again = ops.flash_attention(q, k, v, causal=causal)
         want = ops.flash_attention(q, k, v, causal=causal, impl="ref")
         e = max_err(got, want)
-        check(e <= (2e-2 if dt == bf16 else 2e-5),
+        check(e <= (2e-2 if dt == bf16 else 2e-5) and torch.equal(got, again),
               f"flash_attention B{B} H{H} K{K} Sq{Sq} Sk{Sk} D{D} {dt} causal={causal}: "
-              f"max abs err {e:.3e}")
+              f"max abs err {e:.3e}, two calls bit-identical")
         if (B, H, Sq, D, dt, causal) == (MAIN_B, 32, MAIN_S, 64, bf16, True):
             main_err["flash_attention"] = e
-    # decode: atol 2e-5 in f32, 2e-2 in bf16; kv_len random, 1 and S
+    # decode: atol 2e-5 in f32, 2e-2 in bf16; kv_len random, 1 and S, on a
+    # split boundary (32) and one past it (33); B 8, a 4096-slot cache, G 1
+    # and 8; two calls bit-identical (the splits merge in a fixed order)
     for (B, K, G, S, D), qdt, kdt in [((MAIN_B, 8, 4, CACHE_LEN, 64), bf16, bf16),
                                       ((MAIN_B, 8, 4, CACHE_LEN, 64), f32, f32),
+                                      ((8, 8, 4, CACHE_LEN, 64), bf16, bf16),
+                                      ((MAIN_B, 8, 4, 4096, 64), bf16, bf16),
+                                      ((MAIN_B, 8, 1, CACHE_LEN, 64), bf16, bf16),
+                                      ((MAIN_B, 8, 8, CACHE_LEN, 64), bf16, bf16),
                                       ((3, 2, 8, 40, 16), f32, f32),
                                       ((1, 4, 1, 128, 128), f32, f32),
                                       ((2, 2, 4, 100, 128), bf16, bf16),
@@ -196,15 +225,18 @@ def kernel_checks(gen, dev) -> dict:
         q = randn(B, 1, K * G, D, dtype=qdt)
         kc, vc = randn(B, S, K, D, dtype=kdt), randn(B, S, K, D, dtype=kdt)
         for lens in (torch.randint(1, S + 1, (B,), generator=gen, device=dev),
-                     torch.ones(B, device=dev), torch.full((B,), S, device=dev)):
+                     torch.ones(B, device=dev), torch.full((B,), S, device=dev),
+                     torch.full((B,), min(32, S), device=dev),
+                     torch.full((B,), min(33, S), device=dev)):
             lens = lens.to(torch.int32)
             got = ops.decode_attention(q, kc, vc, lens)
+            again = ops.decode_attention(q, kc, vc, lens)
             want = ops.decode_attention(q, kc, vc, lens, impl="ref")
             e = max_err(got, want)
-            check(e <= (2e-2 if qdt == bf16 else 2e-5),
+            check(e <= (2e-2 if qdt == bf16 else 2e-5) and torch.equal(got, again),
                   f"decode_attention B{B} K{K} G{G} S{S} D{D} q {qdt} kv {kdt} "
-                  f"kv_len {lens.tolist()}: max abs err {e:.3e}")
-            if (K, G, S, qdt) == (8, 4, CACHE_LEN, bf16):
+                  f"kv_len {lens.tolist()}: max abs err {e:.3e}, two calls bit-identical")
+            if (B, K, G, S, qdt) == (MAIN_B, 8, 4, CACHE_LEN, bf16):
                 main_err["decode_attention"] = max(main_err.get("decode_attention", 0.0), e)
 
     main_err["ssd_scan"] = ssd_checks(gen, dev)
@@ -278,29 +310,10 @@ def kernel_times(gen, dev, main_err: dict) -> dict:
         shape=f"x {tuple(x.shape)} bf16", ms=time_ms(lambda: rk.rmsnorm_cuda(x, s)),
         plain_ms=time_ms(lambda: ref.rmsnorm(x, s)),
         library_ms=time_ms(lambda: F.rms_norm(x, (2048,), sb, 1e-6)), bound_ms=b, bound_by=why)
-    q = randn(MAIN_B, MAIN_S, 32, 64, dtype=bf16)
-    k, v = randn(MAIN_B, MAIN_S, 8, 64, dtype=bf16), randn(MAIN_B, MAIN_S, 8, 64, dtype=bf16)
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    pairs = MAIN_S * (MAIN_S + 1) // 2
-    b, why = bound_ms(nbytes(q, k, v) + nbytes(q), 4 * MAIN_B * 32 * 64 * pairs, bf16)
-    rows["flash_attention"] = dict(
-        shape=f"q {tuple(q.shape)} k/v {tuple(k.shape)} bf16 causal",
-        ms=time_ms(lambda: ops.flash_attention(q, k, v)),
-        plain_ms=time_ms(lambda: ops.flash_attention(q, k, v, impl="ref")),
-        library_ms=time_ms(lambda: sdpa_gqa(qt, kt, vt, is_causal=True)),
-        bound_ms=b, bound_by=why)
-    kv_len = MAIN_S + N_DECODE
-    qd = randn(MAIN_B, 1, 32, 64, dtype=bf16)
-    kc, vc = randn(MAIN_B, CACHE_LEN, 8, 64, dtype=bf16), randn(MAIN_B, CACHE_LEN, 8, 64, dtype=bf16)
-    lens = torch.full((MAIN_B,), kv_len, dtype=torch.int32, device=dev)
-    read = 2 * MAIN_B * 8 * kv_len * 64 * 2
-    b, why = bound_ms(nbytes(qd, lens) + read + nbytes(qd), 4 * MAIN_B * 32 * 64 * kv_len, bf16)
-    qdt, kct, vct = qd.transpose(1, 2), kc[:, :kv_len].transpose(1, 2), vc[:, :kv_len].transpose(1, 2)
-    rows["decode_attention"] = dict(
-        shape=f"q {tuple(qd.shape)} cache {tuple(kc.shape)} kv_len {kv_len} bf16",
-        ms=time_ms(lambda: ops.decode_attention(qd, kc, vc, lens)),
-        plain_ms=time_ms(lambda: ops.decode_attention(qd, kc, vc, lens, impl="ref")),
-        library_ms=time_ms(lambda: sdpa_gqa(qdt, kct, vct)), bound_ms=b, bound_by=why)
+    rows["flash_attention"] = flash_row(randn, MAIN_B, MAIN_S, host=True)
+    rows["flash_attention"]["at_other_shapes"] = [flash_row(randn, TRAIN_B, TRAIN_S)]
+    rows["decode_attention"] = decode_row(randn, dev, CACHE_LEN, MAIN_S + N_DECODE, host=True)
+    rows["decode_attention"]["at_other_shapes"] = [decode_row(randn, dev, LONG_CACHE, LONG_KV)]
     B, S, H, P, G, N, L = SSD_MAIN
     args = ssd_inputs(gen, dev, B, S, H, P, G, N, bf16)
     x, dtt, A, Bm, Cm = args
@@ -316,11 +329,74 @@ def kernel_times(gen, dev, main_err: dict) -> dict:
     ops.reset_launch_counts()        # timing launches are not the main path's
     for name, r in rows.items():
         r["max_abs_err"] = main_err[name]
-        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
-        print(f"  {name} [{r['shape']}]: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-              f"yardstick {lib}, bound {r['bound_ms']:.5f} ms "
-              f"({r['bound_by']}), main-shape max abs err {r['max_abs_err']:.3e}", flush=True)
+        for row in [r] + r.get("at_other_shapes", []):
+            lib = "none" if row["library_ms"] is None else f"{row['library_ms']:.5f} ms"
+            host = f", wrapper host {row['host_us']:.1f} us/call" if "host_us" in row else ""
+            print(f"  {name} [{row['shape']}]: kernel {row['ms']:.5f} ms, plain "
+                  f"{row['plain_ms']:.5f} ms, yardstick {lib}, bound {row['bound_ms']:.5f} ms "
+                  f"({row['bound_by']}){host}", flush=True)
+        print(f"  {name}: main-shape max abs err {r['max_abs_err']:.3e}", flush=True)
     return rows
+
+
+def host_us(fn, n: int = 200, rounds: int = 5) -> float:
+    """Host time per call of ``fn`` (the wrapper's Python, allocation and
+    launch), in microseconds: the least over ``rounds`` rounds of ``n`` calls
+    without a sync (the host is shared, so single rounds vary)."""
+    best = float("inf")
+    for _ in range(rounds):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        best = min(best, time.perf_counter() - t0)
+        torch.cuda.synchronize()
+    return best / n * 1e6
+
+
+def flash_row(randn, B, S, host=False) -> dict:
+    """granite-3-2b's causal self-attention (32/8 heads of 64, bf16) at
+    (B, S): kernel, plain, SDPA and the bound (q, k, v read once, o written
+    once; 4*D flops per causal (query, key) pair per head)."""
+    bf16 = torch.bfloat16
+    from repro_torch.kernels import ops
+
+    q = randn(B, S, 32, 64, dtype=bf16)
+    k, v = randn(B, S, 8, 64, dtype=bf16), randn(B, S, 8, 64, dtype=bf16)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    pairs = S * (S + 1) // 2
+    b, why = bound_ms(nbytes(q, k, v) + nbytes(q), 4 * B * 32 * 64 * pairs, bf16)
+    row = dict(shape=f"q {tuple(q.shape)} k/v {tuple(k.shape)} bf16 causal",
+               ms=time_ms(lambda: ops.flash_attention(q, k, v)),
+               plain_ms=time_ms(lambda: ops.flash_attention(q, k, v, impl="ref")),
+               library_ms=time_ms(lambda: sdpa_gqa(qt, kt, vt, is_causal=True)),
+               bound_ms=b, bound_by=why)
+    if host:
+        row["host_us"] = host_us(lambda: ops.flash_attention(q, k, v))
+    return row
+
+
+def decode_row(randn, dev, S, kv_len, host=False) -> dict:
+    """granite-3-2b's decode attention (B 2, 32/8 heads of 64, bf16) against
+    an S-slot cache filled to kv_len: kernel, plain, SDPA over the first
+    kv_len keys, and the bound (the kv_len rows of K and V read once)."""
+    bf16 = torch.bfloat16
+    from repro_torch.kernels import ops
+
+    qd = randn(MAIN_B, 1, 32, 64, dtype=bf16)
+    kc, vc = randn(MAIN_B, S, 8, 64, dtype=bf16), randn(MAIN_B, S, 8, 64, dtype=bf16)
+    lens = torch.full((MAIN_B,), kv_len, dtype=torch.int32, device=dev)
+    read = 2 * MAIN_B * 8 * kv_len * 64 * 2
+    b, why = bound_ms(nbytes(qd, lens) + read + nbytes(qd), 4 * MAIN_B * 32 * 64 * kv_len, bf16)
+    qdt, kct, vct = qd.transpose(1, 2), kc[:, :kv_len].transpose(1, 2), vc[:, :kv_len].transpose(1, 2)
+    row = dict(shape=f"q {tuple(qd.shape)} cache {tuple(kc.shape)} kv_len {kv_len} bf16",
+               ms=time_ms(lambda: ops.decode_attention(qd, kc, vc, lens)),
+               plain_ms=time_ms(lambda: ops.decode_attention(qd, kc, vc, lens, impl="ref")),
+               library_ms=time_ms(lambda: sdpa_gqa(qdt, kct, vct)), bound_ms=b, bound_by=why)
+    if host:
+        row["host_us"] = host_us(lambda: ops.decode_attention(qd, kc, vc, lens))
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -771,8 +847,6 @@ def main_path(phase: str, arch: str, seq: int, seed: int, dev, profile: bool = F
 # phase 7: the training path at full width
 # ---------------------------------------------------------------------------
 
-TRAIN_B, TRAIN_S, TRAIN_STEPS = 8, 256, 4
-
 
 def expected_train_counts(cfg) -> dict:
     """Kernel launches of one training step of a dense model under remat:
@@ -1035,7 +1109,9 @@ def main(argv=None) -> int:
                 "replaces": replaces[name], "launches": counts[name],
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-                "library_ms": r["library_ms"]} for name, r in rows.items()]
+                "library_ms": r["library_ms"],
+                **{key: r[key] for key in ("host_us", "at_other_shapes") if key in r}}
+               for name, r in rows.items()]
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

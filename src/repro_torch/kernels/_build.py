@@ -152,6 +152,29 @@ def unit_last(t):
     return t if t.stride(-1) == 1 else t.contiguous()
 
 
+def rows_aligned(t) -> bool:
+    """True when every row of ``t`` starts on 16 bytes: a unit last stride,
+    and the base address and every other stride (of a dimension longer than
+    1) a multiple of 16 bytes -- what a 16-byte copy of a row needs (cp.async
+    or TMA alike)."""
+    strides = t.stride()
+    if strides[-1] != 1:
+        return False
+    shape, bits = t.shape, 0
+    for i in range(len(strides) - 1):
+        if shape[i] > 1:
+            bits |= strides[i]
+    return (t.data_ptr() | bits * t.element_size()) % 16 == 0
+
+
+def aligned_rows(t):
+    """``t`` itself when :func:`rows_aligned`, else a fresh contiguous copy
+    (a fresh allocation starts on 512 bytes, and the kernels' head dims make
+    every row a multiple of 16 bytes)."""
+    import torch
+    return t if rows_aligned(t) else t.clone(memory_format=torch.contiguous_format)
+
+
 def check(rc: int, name: str) -> None:
     """Raise on a refused or failed launch (the C function returns the
     ``cudaGetLastError()`` right after it, or -1 for an unsupported shape

@@ -1,18 +1,33 @@
-"""Decode attention: a CUDA C++ kernel for Hopper (``csrc/decode_attention.cu``).
+"""Decode attention: a split-K CUDA C++ kernel for Hopper
+(``csrc/decode_attention.cu``).
 
 Replaces ``src/repro/kernels/decode_attention.py`` ``decode_attention``
 (Pallas, ``_decode_kernel``).  On the H100 it is bound by bytes: it reads
 the first ``kv_len[b]`` rows of the K and V cache once, with about ``4*G``
-flops per byte.  Its design reads each cache row once for all G query heads
-of its KV head (one block per (KV head, batch row)), skips the rows past
-``kv_len`` without reading them, and reads the model's ``(B,S_max,K,D)``
-cache in place through its strides.  Head dims 16, 64 and 128; q and the
-cache each float32 or bfloat16 (the library path gives both one dtype).
+flops per byte, so it has to keep the card's memory system busy.  The TPU
+kernel walks the cache in one sequential pass per (batch row, KV head); at
+batch 2 that would fill 16 of 132 SMs.  Here the grid is (KV head, batch
+row, split): :func:`split_plan` cuts the cache length ``S`` into splits of
+``split_len`` keys from ``S``, ``B*K`` and the SM count alone -- never from
+``kv_len``, whose ``.item()`` would add a host sync to every layer.  Each
+block reads its split once for all G query heads of its KV head (16-byte
+``cp.async`` copies, so cache rows must lie on 16 bytes; the wrapper copies
+a cache that breaks the rule) and skips the keys past ``kv_len``; a split
+that starts past ``kv_len`` reads nothing.  Partials (m, l, acc) go to fp32
+scratch, and the last block of each (b, KV head) -- found by an integer
+counter -- merges them in split order: no float atomics, so two calls give
+bit-identical output.  The scratch (``torch.empty``) and the counters are
+kept per device and reused from call to call, which costs the serving path
+no allocation; calls on one device must therefore run on one stream, one
+after another, as the model's do.  Head dims 16, 64 and 128; G up to 64; q
+and the cache each float32 or bfloat16 (the library path gives both one
+dtype).
 
 ``decode_attention_cuda`` launches the kernel (or raises);
 :func:`decode_attention_plain` (from ``kernels/ref.py``) is the plain version
 that ``ops.decode_attention`` takes for tensors on the CPU.  ``launches``
-counts kernel launches.
+counts calls of the op (one kernel launch each), so a decode step counts one
+per layer.
 """
 from __future__ import annotations
 
@@ -23,15 +38,29 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import decode_attention as decode_attention_plain
 
-__all__ = ["decode_attention_cuda", "decode_attention_plain", "launches"]
+__all__ = ["decode_attention_cuda", "decode_attention_plain", "launches", "split_plan"]
 
-#: kernel launches so far (reset by ``ops.reset_launch_counts``)
+#: calls launched so far (reset by ``ops.reset_launch_counts``)
 launches = 0
 HEAD_DIMS = (16, 64, 128)
 MAX_GROUP = 64
+SPLIT_UNIT = 32          # keys per tile in the kernel: splits are multiples of it
+BLOCKS_PER_SM = 4        # blocks the plan aims for, per SM
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_ARGTYPES = ([_P] * 5 + [_I] * 7 + [ctypes.c_float] + [_L] * 12 + [_P])
+_ARGTYPES = ([_P] * 7 + [_I] * 9 + [ctypes.c_float] + [_L] * 12 + [_P])
+_device: dict = {}      # device index -> [SM count, counters, scratch]
+
+
+def split_plan(S: int, B: int, K: int, n_sm: int) -> tuple[int, int]:
+    """-> (split_len, n_split): split ``s`` covers keys ``[s*split_len,
+    min((s+1)*split_len, S))``.  About ``BLOCKS_PER_SM * n_sm`` blocks over
+    the B*K (batch row, KV head) pairs, each split a multiple of
+    ``SPLIT_UNIT`` keys, at least one split."""
+    want = max(1, -(-BLOCKS_PER_SM * n_sm // max(1, B * K)))
+    per = max(1, -(-S // want))
+    split_len = -(-per // SPLIT_UNIT) * SPLIT_UNIT
+    return split_len, max(1, -(-S // split_len))
 
 
 def decode_attention_cuda(q, k, v, kv_len):
@@ -41,6 +70,28 @@ def decode_attention_cuda(q, k, v, kv_len):
     kv_len = kv_len.to(device=q.device, dtype=torch.int32).contiguous()
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     return _launch(q, k, v, kv_len, out, _build.current_stream(q))
+
+
+def _device_state(dev):
+    """[SM count, int32 counters, fp32 scratch] of ``dev``."""
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    state = _device.get(idx)
+    if state is None:
+        state = _device[idx] = [torch.cuda.get_device_properties(idx).multi_processor_count,
+                                torch.zeros(0, dtype=torch.int32, device=dev),
+                                torch.empty(0, dtype=torch.float32, device=dev)]
+    return state
+
+
+def _buffers(state, n_pairs: int, n_part: int):
+    """(counters, scratch) of a device's ``state``, grown to at least
+    ``n_pairs`` counters (zero between calls: the kernel resets them) and
+    ``n_part`` floats."""
+    if state[1].numel() < n_pairs:
+        state[1] = torch.zeros(max(n_pairs, 256), dtype=torch.int32, device=state[1].device)
+    if state[2].numel() < n_part:
+        state[2] = torch.empty(max(n_part, 1 << 16), dtype=torch.float32, device=state[2].device)
+    return state[1], state[2]
 
 
 def _launch(q, k, v, kv_len, out, stream):
@@ -59,11 +110,16 @@ def _launch(q, k, v, kv_len, out, stream):
                          f"or group {G} > {MAX_GROUP}")
     if tuple(out.shape) != (B, K, G, D) or out.stride(-1) != 1:
         raise ValueError("decode_attention: out must be (B,K,G,D) with a unit last stride")
-    q, k, v = (_build.unit_last(t) for t in (q, k, v))
+    q = _build.unit_last(q)
+    k, v = _build.aligned_rows(k), _build.aligned_rows(v)
+    state = _device_state(q.device)
+    split_len, n_split = split_plan(S, B, K, state[0])
+    counter, part = _buffers(state, B * K, B * K * n_split * G * (D + 2))
     fn = _build.function("avec_decode_attention", _ARGTYPES)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(), out.data_ptr(),
-            _build.dtype_code(q), _build.dtype_code(k), B, K, G, S, D, float(D ** -0.5),
-            *(t.stride(i) for t in (q, k, v, out) for i in range(3)), stream)
+            part.data_ptr(), counter.data_ptr(), _build.dtype_code(q), _build.dtype_code(k),
+            B, K, G, S, D, split_len, n_split, float(D ** -0.5),
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3], stream)
     _build.check(rc, "decode_attention")
     launches += 1
     return out

@@ -2,15 +2,22 @@
 (``csrc/flash_attention.cu``).
 
 Replaces ``src/repro/kernels/flash_attention.py`` ``flash_attention``
-(Pallas, ``_flash_kernel``).  On the H100, at the main path's prompt
+(Pallas, ``_flash_kernel``).  On the H100, at the main paths' prompt
 lengths, it is bound by bytes (q, k, v read once, o written once); the
-products grow as ``Sq*Sk*D`` and bound it only for long prompts.  Its design
-keeps the online softmax in fp32 and never writes the score matrix to
-device memory: one block per (query tile, head, batch row) walks the K/V
-tiles in shared memory up to the causal limit.  It masks ragged ``Sq``/``Sk``
-tails itself (the Pallas kernel asserted divisible lengths) and reads every
-tensor through its strides, so the model's ``(B,S,H,D)`` layout is used in
-place.  Head dims 16, 64 and 128; float32 and bfloat16.
+products grow as ``Sq*Sk*D`` and bound it only for long prompts.
+
+bfloat16 runs on the tensor cores: one warpgroup per (64 packed query rows,
+KV head, batch row), the G query heads of a KV head packed into the rows so
+each K/V tile is read once per group; both products are ``wgmma`` (bf16 in,
+fp32 accumulate), the online softmax stays in registers, K/V tiles stream
+through a two-stage shared-memory ring by 16-byte ``cp.async`` copies.
+Those copies need every row on 16 bytes (:func:`_build.rows_aligned`); a
+tensor that breaks the rule is copied first (:func:`_build.aligned_rows`),
+never sent to another kernel.  float32 keeps a CUDA-core kernel: tensor
+cores would round it to TF32, outside the 2e-5 fp32 tolerance.  Both mask
+ragged ``Sq``/``Sk`` tails themselves (the Pallas kernel asserted divisible
+lengths) and read every tensor through its strides, so the model's
+``(B,S,H,D)`` layout is used in place.  Head dims 16, 64 and 128.
 
 ``flash_attention_cuda`` launches the kernel (or raises);
 :func:`flash_attention_plain` (from ``kernels/ref.py``) is the plain version
@@ -45,6 +52,13 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, out=None):
     return _launch(q, k, v, causal, out, _build.current_stream(q))
 
 
+def kernel_inputs(q, k, v):
+    """q, k, v as the kernel reads them: bf16 rows on 16 bytes (copied where
+    they are not), f32 with a unit last stride."""
+    fix = _build.aligned_rows if q.dtype == torch.bfloat16 else _build.unit_last
+    return tuple(fix(t) for t in (q, k, v))
+
+
 def _launch(q, k, v, causal, out, stream):
     global launches
     B, H, Sq, D = q.shape
@@ -58,11 +72,15 @@ def _launch(q, k, v, causal, out, stream):
         raise ValueError(f"flash_attention: head_dim {D} not in {HEAD_DIMS}")
     if tuple(out.shape) != (B, H, Sq, D) or out.stride(-1) != 1:
         raise ValueError("flash_attention: out must be (B,H,Sq,D) with a unit last stride")
-    q, k, v = (_build.unit_last(t) for t in (q, k, v))
+    q, k, v = kernel_inputs(q, k, v)
+    dst = out if q.dtype != torch.bfloat16 or _build.rows_aligned(out) else torch.empty_like(
+        out, memory_format=torch.contiguous_format)
     fn = _build.function("avec_flash_attention", _ARGTYPES)
-    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _build.dtype_code(q),
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dst.data_ptr(), _build.dtype_code(q),
             B, H, K, Sq, Sk, D, int(bool(causal)), float(D ** -0.5),
-            *(t.stride(i) for t in (q, k, v, out) for i in range(3)), stream)
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *dst.stride()[:3], stream)
     _build.check(rc, "flash_attention")
     launches += 1
+    if dst is not out:
+        out.copy_(dst)
     return out
