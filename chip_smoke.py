@@ -10,23 +10,29 @@ Phases (any failed check exits non-zero):
 2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (timed);
 3. hold each kernel against its plain PyTorch version on the card, at
    granite-3-2b's and mamba2-130m's shapes, head dims 16 and 128, ragged
-   lengths, kv_len 1 and S, S < chunk and S = 1, float32 and bfloat16; flash
+   lengths, kv_len 1 and S, S < chunk and S = 1, float32 and bfloat16; rmsnorm
+   also at the training rows, with a bf16 scale, and on rows off 16 bytes
+   or of a D that is not a multiple of the vector (its scalar loop); the SSD
+   scan on both of its kernels (tensor cores: bf16 at mamba2-130m's shape,
+   B 1 S 4096, ragged S, G > 1, P 48 N 96; CUDA cores: fp32, N 16, ragged
+   L), each case checked to take its branch and called twice for
+   bit-identical output; flash
    attention also at the training shape (B 8, S 256) and a 1000-token ragged
    prompt at head dim 128, decode attention also at B 8, a 4096-slot cache,
    kv_len on a split boundary and one past it, G 1 and 8, each attention
    kernel called twice for bit-identical output; time kernel, plain version
    and the PyTorch yardstick (``F.rms_norm``,
    ``F.scaled_dot_product_attention``, timed only, never called by the port;
-   no single PyTorch call computes the SSD scan) at the main paths' shapes,
-   flash also at the training shape and decode also at S 4096, with each
-   attention wrapper's host time per call;
+   no single PyTorch call computes the SSD scan) at the main paths' shapes
+   (rmsnorm at every one of them), flash also at the training shape and
+   decode also at S 4096, with the wrappers' host time per call;
    the int8 quantize/dequantize kernels at every gradient leaf shape of
    granite-3-2b and mamba2-130m (fp32 and bf16 input), with rows that tie
    at k + 0.5, all-zero rows, rows of +-absmax and rows holding NaN or Inf:
    q equal, scale within rtol 1e-6 (NaN and Inf in place), timed at w_gate's
-   and wq's shapes (dequantize's yardstick
-   ``torch.mul(q, scale)``, timed only; no single PyTorch call quantizes
-   per row);
+   and wq's shapes and summed over one exchange's 11 leaves (dequantize's
+   yardstick ``torch.mul(q, scale)``, timed only; no single PyTorch call
+   quantizes per row);
 3b. each kernel's ``torch.autograd.Function`` (rmsnorm, flash attention,
    SSD scan) against the plain path at the training path's shapes, bf16 and
    fp32, ragged lengths and head_dim 16: the forward output at the kernel's
@@ -48,7 +54,8 @@ Phases (any failed check exits non-zero):
    plain versions;
 6. the second main path, the same way: full-width mamba2-130m (24 layers,
    d_model 768), prefill (B 2, S 1024: four chunks of 256), 8 decodes and a
-   score, through the SSD-scan and rmsnorm kernels;
+   score, through the SSD-scan and rmsnorm kernels, every scan on the
+   tensor-core branch;
 7. the training path at full width: granite-3-2b as registered (bf16,
    remat, AdamW) takes 4 ``Trainer`` steps (B 8, S 256), with exact
    launch counts per step; one data-parallel step exchanges its gradients
@@ -168,20 +175,31 @@ def kernel_checks(gen, dev) -> dict:
     main_err = {}
     print("phase 3: kernels vs plain versions on the card", flush=True)
     # rmsnorm: f32 atol 1e-5 (test_kernels.py); bf16 within one output ulp (rtol 1e-2).
-    # granite-3-2b's shapes, small ones, then mamba2-130m's as its path gives them:
-    # mixer and final norms on bf16 x with the bf16 scale, the gated norm on
-    # fp32 x (d_inner 1536) with the fp32 scale, prefill and decode
-    for shape, dt, sdt in [((MAIN_B, MAIN_S, 2048), bf16, f32), ((MAIN_B, MAIN_S, 2048), f32, f32),
-                           ((MAIN_B, 1, 2048), bf16, f32), ((37, 512), f32, f32),
-                           ((5, 16), f32, f32), ((3, 128), bf16, f32),
-                           ((MAIN_B, SSM_S, 768), bf16, bf16), ((MAIN_B, SSM_S, 1536), f32, f32),
-                           ((MAIN_B, 1, 768), bf16, bf16), ((MAIN_B, 1, 1536), f32, f32)]:
-        x, s = randn(*shape, dtype=dt), randn(shape[-1], dtype=sdt)
+    # granite-3-2b's shapes (also the training rows, and with a bf16 scale),
+    # small ones, then mamba2-130m's as its path gives them: mixer and final
+    # norms on bf16 x with the bf16 scale, the gated norm on fp32 x (d_inner
+    # 1536) with the fp32 scale, prefill and decode; then rows the vector
+    # path does not take (off 16 bytes, D not a multiple of the vector),
+    # which run the kernel's scalar loop
+    for shape, dt, sdt, skew in [
+            ((MAIN_B, MAIN_S, 2048), bf16, f32, 0), ((MAIN_B, MAIN_S, 2048), f32, f32, 0),
+            ((MAIN_B, 1, 2048), bf16, f32, 0), ((TRAIN_B, TRAIN_S, 2048), bf16, f32, 0),
+            ((MAIN_B, MAIN_S, 2048), bf16, bf16, 0), ((MAIN_B, 1, 2048), bf16, bf16, 0),
+            ((37, 512), f32, f32, 0), ((37, 512), f32, bf16, 0), ((5, 16), f32, f32, 0),
+            ((3, 128), bf16, f32, 0), ((MAIN_B, SSM_S, 768), bf16, bf16, 0),
+            ((MAIN_B, SSM_S, 1536), f32, f32, 0), ((MAIN_B, 1, 768), bf16, bf16, 0),
+            ((MAIN_B, 1, 1536), f32, f32, 0), ((37, 512), f32, f32, 1),
+            ((MAIN_B, MAIN_S, 2048), bf16, f32, 1), ((7, 13), bf16, bf16, 0),
+            ((9, 100), f32, f32, 3)]:
+        # skew > 0: rows of a wider tensor from its element `skew` (off 16 bytes)
+        x = randn(*shape[:-1], shape[-1] + skew, dtype=dt)[..., skew:]
+        s = randn(shape[-1], dtype=sdt)
         got, want = ops.rmsnorm(x, s), ops.rmsnorm(x, s, impl="ref")
         e = max_err(got, want)
         tol = (got.float() - want.float()).abs() <= 1e-5 + (1e-2 if dt == bf16 else 0) * want.float().abs()
-        check(bool(tol.all()), f"rmsnorm {shape} {dt} scale {sdt}: max abs err {e:.3e}")
-        if shape == (MAIN_B, MAIN_S, 2048) and dt == bf16:
+        rows = f", rows off 16 bytes by {skew}" if skew else ""
+        check(bool(tol.all()), f"rmsnorm {shape} {dt} scale {sdt}{rows}: max abs err {e:.3e}")
+        if (shape, dt, sdt, skew) == ((MAIN_B, MAIN_S, 2048), bf16, f32, 0):
             main_err["rmsnorm"] = e
     # flash: atol 2e-5 in f32, 2e-2 in bf16 (test_kernels.py); bf16 runs the
     # tensor-core kernel, f32 the CUDA-core one.  Serving and training shapes,
@@ -265,8 +283,15 @@ def ssd_checks(gen, dev) -> float:
     the bound ``tests/test_kernels.py`` holds the Pallas kernel to (fp32
     sums in another order, over up to 256-step decays); in bf16, y also
     within one output ulp (rtol 1e-2), since both round the same fp32 value
-    to bf16 and may land on neighbouring values."""
+    to bf16 and may land on neighbouring values.  Each case must take the
+    branch ``ssd_scan.tensor_core_branch`` names (bf16 at P, N multiples of
+    16 and L a multiple of 64: the tensor cores; the rest the CUDA cores);
+    the bf16 cases at B 1, S 4096 (16 chunks: the state passes along 16),
+    ragged S and G > 1 run the tensor-core kernels.  Two calls must agree
+    bit for bit (the chunk states pass in a fixed order, whichever block of
+    a (batch row, head) finishes last)."""
     from repro_torch.kernels import ops
+    from repro_torch.kernels.ssd_scan import tensor_core_branch
 
     bf16, f32 = torch.bfloat16, torch.float32
     main = 0.0
@@ -274,42 +299,54 @@ def ssd_checks(gen, dev) -> float:
                        ((2, 512, 4, 64, 2, 128, 128), f32), ((1, 256, 2, 128, 1, 64, 256), f32),
                        ((2, 300, 4, 64, 4, 32, 128), f32), ((1, 128, 8, 32, 2, 64, 64), f32),
                        ((2, 37, 8, 16, 1, 16, 8), f32), ((2, 37, 8, 16, 1, 16, 8), bf16),
-                       ((1, 5, 2, 16, 1, 16, 8), f32), ((1, 1, 24, 64, 1, 128, 256), bf16)]:
+                       ((1, 5, 2, 16, 1, 16, 8), f32), ((1, 1, 24, 64, 1, 128, 256), bf16),
+                       ((1, 4096, 24, 64, 1, 128, 256), bf16), ((2, 300, 4, 64, 4, 32, 128), bf16),
+                       ((1, 128, 8, 32, 2, 64, 64), bf16), ((2, 200, 6, 16, 3, 16, 64), bf16),
+                       ((1, 200, 2, 48, 1, 96, 64), bf16)]:
         B, S, H, P, G, N, L = shape
         args = ssd_inputs(gen, dev, B, S, H, P, G, N, dt_)
+        ops.reset_launch_counts()
         y, st = ops.ssd_scan(*args, chunk=L)
+        branch = ops.branch_counts()
+        y2, st2 = ops.ssd_scan(*args, chunk=L)
         yr, sr = ops.ssd_scan(*args, chunk=L, impl="ref")
         torch.cuda.synchronize()
+        tc = tensor_core_branch(dt_, P, N, ops.ssd_chunk_len(S, L))
         ey, es = max_err(y, yr), max_err(st, sr)
         tol_y = 2e-4 * (yr.float().abs().max().item() + 1.0)
         tol_s = 2e-4 * (sr.abs().max().item() + 1.0)
         ok_y = (y.float() - yr.float()).abs() <= tol_y + (1e-2 if dt_ == bf16 else 0) * yr.float().abs()
-        check(bool(ok_y.all()) and es <= tol_s and y.dtype == dt_ and st.dtype == f32,
-              f"ssd_scan B{B} S{S} H{H} P{P} G{G} N{N} L{L} {dt_}: y max abs err {ey:.3e} "
-              f"(tol {tol_y:.3e}), state {es:.3e} (tol {tol_s:.3e})")
+        check(bool(ok_y.all()) and es <= tol_s and y.dtype == dt_ and st.dtype == f32
+              and branch == {"ssd_scan_tc": int(tc), "ssd_scan_simt": int(not tc)}
+              and torch.equal(y, y2) and torch.equal(st, st2),
+              f"ssd_scan B{B} S{S} H{H} P{P} G{G} N{N} L{L} {dt_} "
+              f"({'tensor' if tc else 'CUDA'} cores): y max abs err {ey:.3e} "
+              f"(tol {tol_y:.3e}), state {es:.3e} (tol {tol_s:.3e}), two calls bit-identical")
         if shape == SSD_MAIN and dt_ == bf16:
             main = ey
+    ops.reset_launch_counts()
     return main
 
 
 def kernel_times(gen, dev, main_err: dict) -> dict:
     """Kernel, plain and yardstick times at the main paths' shapes
     (granite-3-2b and mamba2-130m, bf16), with each kernel's bound."""
-    from repro_torch.kernels import ops, ref
-    from repro_torch.kernels import rmsnorm as rk
+    from repro_torch.kernels import ops
 
     def randn(*shape, dtype=torch.float32):
         return torch.randn(*shape, generator=gen, device=dev).to(dtype)
 
     bf16, f32 = torch.bfloat16, torch.float32
     rows = {}
-    x, s = randn(MAIN_B, MAIN_S, 2048, dtype=bf16), randn(2048)
-    sb = s.to(bf16)
-    b, why = bound_ms(nbytes(x, s) + nbytes(x), 4 * x.numel(), f32)
-    rows["rmsnorm"] = dict(
-        shape=f"x {tuple(x.shape)} bf16", ms=time_ms(lambda: rk.rmsnorm_cuda(x, s)),
-        plain_ms=time_ms(lambda: ref.rmsnorm(x, s)),
-        library_ms=time_ms(lambda: F.rms_norm(x, (2048,), sb, 1e-6)), bound_ms=b, bound_by=why)
+    # granite-3-2b's prefill rows first, then every other main-path shape:
+    # its decode and training rows, mamba2-130m's norms (bf16 scale) and
+    # its gated norm (fp32)
+    rms = [rmsnorm_row(randn, shape, dt, sdt, host=i == 0) for i, (shape, dt, sdt) in enumerate(
+        [((MAIN_B, MAIN_S, 2048), bf16, f32), ((MAIN_B, 1, 2048), bf16, f32),
+         ((TRAIN_B, TRAIN_S, 2048), bf16, f32), ((MAIN_B, SSM_S, 768), bf16, bf16),
+         ((MAIN_B, 1, 768), bf16, bf16), ((MAIN_B, SSM_S, 1536), f32, f32),
+         ((MAIN_B, 1, 1536), f32, f32)])]
+    rows["rmsnorm"] = dict(rms[0], at_other_shapes=rms[1:])
     rows["flash_attention"] = flash_row(randn, MAIN_B, MAIN_S, host=True)
     rows["flash_attention"]["at_other_shapes"] = [flash_row(randn, TRAIN_B, TRAIN_S)]
     rows["decode_attention"] = decode_row(randn, dev, CACHE_LEN, MAIN_S + N_DECODE, host=True)
@@ -322,10 +359,12 @@ def kernel_times(gen, dev, main_err: dict) -> dict:
     b, why = bound_ms(B * S * (H * P + 2 * G * N) * 2 + nbytes(dtt, A)       # inputs read once
                       + B * S * H * P * 2 + B * H * P * N * 4, flops, bf16)  # y, state written once
     rows["ssd_scan"] = dict(
-        shape=f"x {tuple(x.shape)} B/C {tuple(Bm.shape)} bf16 (strided views), chunk {L}",
+        shape=f"x {tuple(x.shape)} B/C {tuple(Bm.shape)} bf16 (strided views), chunk {L}, "
+              f"tensor cores",
         ms=time_ms(lambda: ops.ssd_scan(*args, chunk=L), iters=20),
         plain_ms=time_ms(lambda: ops.ssd_scan(*args, chunk=L, impl="ref"), iters=20),
-        library_ms=None, bound_ms=b, bound_by=why)   # no single PyTorch call computes SSD
+        library_ms=None, bound_ms=b, bound_by=why,   # no single PyTorch call computes SSD
+        host_us=host_us(lambda: ops.ssd_scan(*args, chunk=L)))
     ops.reset_launch_counts()        # timing launches are not the main path's
     for name, r in rows.items():
         r["max_abs_err"] = main_err[name]
@@ -353,6 +392,24 @@ def host_us(fn, n: int = 200, rounds: int = 5) -> float:
         best = min(best, time.perf_counter() - t0)
         torch.cuda.synchronize()
     return best / n * 1e6
+
+
+def rmsnorm_row(randn, shape, dt, sdt, host=False) -> dict:
+    """rmsnorm on x ``shape`` in ``dt`` with a ``sdt`` scale: kernel, plain,
+    ``F.rms_norm`` (its weight in x's type) and the bound (x and the scale
+    read once, y written once; 4 flops per element)."""
+    from repro_torch.kernels import ops, ref
+
+    x, s = randn(*shape, dtype=dt), randn(shape[-1], dtype=sdt)
+    w = s.to(dt)
+    b, why = bound_ms(nbytes(x, s) + nbytes(x), 4 * x.numel(), torch.float32)
+    row = dict(shape=f"x {tuple(x.shape)} {str(dt)[6:]}, scale {str(sdt)[6:]}",
+               ms=time_ms(lambda: ops.rmsnorm(x, s)), plain_ms=time_ms(lambda: ref.rmsnorm(x, s)),
+               library_ms=time_ms(lambda: F.rms_norm(x, (shape[-1],), w, 1e-6)),
+               bound_ms=b, bound_by=why)
+    if host:
+        row["host_us"] = host_us(lambda: ops.rmsnorm(x, s))
+    return row
 
 
 def flash_row(randn, B, S, host=False) -> dict:
@@ -565,7 +622,41 @@ def quant_times(gen, dev, errs: dict) -> dict:
         torch.cuda.empty_cache()
     for name, r in rows.items():
         r["max_abs_err"] = errs[name]
+    exchange_times(gen, dev, rows)
     return rows
+
+
+def exchange_times(gen, dev, rows: dict) -> None:
+    """The int8 kernels over one compressed exchange of granite-3-2b's
+    gradients (``compressed_psum``): quantize_int8 on each of the 11 leaves'
+    rows in bf16 (the parameter dtype, read directly) and dequantize_int8
+    back to fp32, timed leaf by leaf and summed, beside the summed bounds.
+    Added to ``rows`` as each kernel's ``per_exchange``."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import comm_quant as cq
+    from repro_torch.kernels.comm_quant import leaf_rows
+    from repro_torch.models import model as M
+    from repro_torch.utils import tree_leaves
+
+    total = {k: {"launches": 0, "ms": 0.0, "bound_ms": 0.0} for k in rows}
+    for t in tree_leaves(M.abstract_params(get_arch("granite-3-2b"))):   # meta tensors
+        n_rows, cols = leaf_rows(t).shape
+        x = torch.randn(n_rows, cols, generator=gen, device=dev).to(torch.bfloat16)
+        q, s = cq.quantize_int8_cuda(x)
+        n = x.numel()
+        for name, fn, moved in (("quantize_int8", lambda x=x: cq.quantize_int8_cuda(x),
+                                 2 * n + n + 4 * n_rows),
+                                ("dequantize_int8", lambda q=q, s=s: cq.dequantize_int8_cuda(q, s),
+                                 n + 4 * n_rows + 4 * n)):
+            total[name]["launches"] += 1
+            total[name]["ms"] += time_ms(fn, iters=5)
+            total[name]["bound_ms"] += bound_ms(moved, 0, torch.float32)[0]
+        del x, q, s
+    torch.cuda.empty_cache()
+    for name, t in total.items():
+        rows[name]["per_exchange"] = t
+        print(f"  {name} over one exchange ({t['launches']} leaves, bf16 gradients): kernel "
+              f"{t['ms']:.4f} ms, bound {t['bound_ms']:.4f} ms (bytes)", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -729,19 +820,27 @@ def small_train_check(arch: str, seed: int, dev) -> None:
 # phases 5 and 6: the main paths at full width
 # ---------------------------------------------------------------------------
 
+def all_counts() -> dict:
+    """Every kernel's launch count, and the SSD scan's by branch."""
+    from repro_torch.kernels import ops
+    return {**ops.launch_counts(), **ops.branch_counts()}
+
+
 def expected_counts(cfg) -> dict:
     """Kernel launches of one prefill, N_DECODE decodes and one score: an
     rmsnorm per mixer norm, per FFN norm (dense) or gated norm (SSM), and
     the final norm; attention or the SSD scan once per layer per prefill
-    or score; decode attention once per layer per step (an SSM decode step
-    is one plain ``ssd_step``)."""
+    or score, the scan on the tensor cores (bf16, P 64, N 128, chunk 256);
+    decode attention once per layer per step (an SSM decode step is one
+    plain ``ssd_step``)."""
     L, n_fwd = cfg.num_layers, 1 + N_DECODE + 1
     quant = {"quantize_int8": 0, "dequantize_int8": 0}     # serving quantizes on the host
     if cfg.family == "ssm":
         return {"rmsnorm": (2 * L + 1) * n_fwd, "flash_attention": 0, "decode_attention": 0,
-                "ssd_scan": 2 * L, **quant}
+                "ssd_scan": 2 * L, **quant, "ssd_scan_tc": 2 * L, "ssd_scan_simt": 0}
     return {"rmsnorm": (2 * L + 1) * n_fwd, "flash_attention": 2 * L,
-            "decode_attention": L * N_DECODE, "ssd_scan": 0, **quant}
+            "decode_attention": L * N_DECODE, "ssd_scan": 0, **quant,
+            "ssd_scan_tc": 0, "ssd_scan_simt": 0}
 
 
 def main_path(phase: str, arch: str, seq: int, seed: int, dev, profile: bool = False) -> dict:
@@ -807,7 +906,7 @@ def main_path(phase: str, arch: str, seq: int, seed: int, dev, profile: bool = F
             nxt = lg[:, -1].argmax(-1).astype(np.int32)[:, None]
         targets = np.concatenate([tokens[:, 1:], tokens[:, :1]], axis=1)
         loss = float(np.asarray(call("score", {"tokens": tokens, "targets": targets})["loss"]))
-        counts = ops.launch_counts()
+        counts = all_counts()
         for fn, comp, wire in calls:
             print(f"  {fn:8s} compute_s {comp:.5f}  wire_s {wire:.5f}", flush=True)
         print(f"  launches on the main path: {counts}", flush=True)
@@ -856,7 +955,8 @@ def expected_train_counts(cfg) -> dict:
     recomputes the plain versions)."""
     L = cfg.num_layers
     return {"rmsnorm": 2 * 2 * L + 1, "flash_attention": 2 * L, "decode_attention": 0,
-            "ssd_scan": 0, "quantize_int8": 0, "dequantize_int8": 0}
+            "ssd_scan": 0, "quantize_int8": 0, "dequantize_int8": 0, "ssd_scan_tc": 0,
+            "ssd_scan_simt": 0}
 
 
 def row_bound(g):
@@ -907,7 +1007,7 @@ def train_path(seed: int, dev, profile: bool = False) -> dict:
     trainer = Trainer(cfg, ocfg, data, seed=seed, device=dev)
     ops.reset_launch_counts()
     rep = trainer.run(TRAIN_STEPS)
-    counts["trainer"] = ops.launch_counts()
+    counts["trainer"] = all_counts()
     want = {k: v * TRAIN_STEPS for k, v in expected_train_counts(cfg).items()}
     print(f"  Trainer.run({TRAIN_STEPS}): losses {[round(x, 5) for x in rep.losses]}, "
           f"wall {rep.wall_s:.2f} s (init included); launches {counts['trainer']}", flush=True)
@@ -944,7 +1044,7 @@ def train_path(seed: int, dev, profile: bool = False) -> dict:
             reduced_g = compressed_grad_allreduce(groups, grads)
             torch.cuda.synchronize()
             exchange_s = time.perf_counter() - t0
-            counts["exchange"] = ops.launch_counts()
+            counts["exchange"] = all_counts()
         finally:
             dist.destroy_process_group()
     n_leaves = len(tree_leaves(grads))
@@ -981,11 +1081,11 @@ def train_path(seed: int, dev, profile: bool = False) -> dict:
     ops.reset_launch_counts()
     residual = ErrorFeedback.init(grads)
     out, residual = ErrorFeedback.compress(grads, residual)
-    ef = ops.launch_counts()
+    ef = all_counts()
     del out, residual
     ctree, wire = compress_tree(grads)
     back = decompress_tree(ctree)
-    counts["compress"] = ops.launch_counts()
+    counts["compress"] = all_counts()
     check(ef["quantize_int8"] == ef["dequantize_int8"] == n_leaves
           and counts["compress"]["quantize_int8"] == counts["compress"]["dequantize_int8"]
           == 2 * n_leaves, f"one quantize and one dequantize per leaf per pass "
@@ -1110,7 +1210,11 @@ def main(argv=None) -> int:
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                 "library_ms": r["library_ms"],
-                **{key: r[key] for key in ("host_us", "at_other_shapes") if key in r}}
+                **{key: r[key] for key in ("host_us", "at_other_shapes", "per_exchange")
+                   if key in r},
+                **({"launches_by_branch": {"tensor_cores": counts["ssd_scan_tc"],
+                                           "cuda_cores": counts["ssd_scan_simt"]}}
+                   if name == "ssd_scan" else {})}
                for name, r in rows.items()]
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))

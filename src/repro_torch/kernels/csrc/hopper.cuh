@@ -1,7 +1,9 @@
 // Hopper building blocks for the hand-written kernels, in inline PTX:
 // 16-byte cp.async copies, the swizzled shared-memory tile layout that
-// wgmma reads, wgmma matrix descriptors, and the three warpgroup products
-// the flash kernel issues (bf16 in, fp32 accumulate).  sm_90a only.
+// wgmma reads, wgmma matrix descriptors, the three warpgroup products of
+// the flash kernel, and the warp-level mma.sync product with its
+// ldmatrix loads and the bf16 hi/lo split the SSD scan uses (bf16 in, fp32
+// accumulate).  sm_90a only.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -141,6 +143,50 @@ __device__ __forceinline__ void wgmma_m64n16k16_rs(float (&d)[8], const uint32_t
 }
 
 #undef AVEC_R8
+
+// ---- warp-level tensor-core products (mma.sync m16n8k16, bf16 in, fp32 sum)
+//
+// Fragments of one warp, g = lane / 4, t = lane % 4:
+//   A (16x16, row-major): a[0] = (g, 2t..2t+1), a[1] = (g+8, 2t..), a[2] = (g, 2t+8..),
+//                         a[3] = (g+8, 2t+8..)
+//   B (16x8, k x n):      b[0] = (k 2t..2t+1, n g), b[1] = (k 2t+8.., n g)
+//   C/D (16x8, fp32):     d[0..1] = (g, 2t..2t+1), d[2..3] = (g+8, 2t..2t+1)
+// (two bf16 per 32-bit register, the lower index in the low half).
+
+// Four 8x8 bf16 matrices from shared memory: lane l gives the address of
+// row l % 8 of matrix l / 8 (16 contiguous bytes); register i receives
+// matrix i, (row g, columns 2t, 2t+1), or with TRANS (rows 2t, 2t+1, column g).
+template <bool TRANS>
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* row_addr) {
+  if constexpr (TRANS)
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(smem_addr(row_addr)));
+  else
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(smem_addr(row_addr)));
+}
+
+// d += a * b
+__device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a)[4],
+                                               uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// v0, v1 as bf16 pairs hi + lo: hi = bf16(v), lo = bf16(v - hi), so hi + lo
+// carries about 16 significant bits of v (one bf16 carries 8)
+__device__ __forceinline__ void split_bf16(float v0, float v1, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(v0 - hf.x, v1 - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
 
 }  // namespace hopper
 }  // namespace avec

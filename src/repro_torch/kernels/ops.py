@@ -31,6 +31,9 @@ _KERNELS = {"rmsnorm": (_rms, "launches"), "flash_attention": (_fa, "launches"),
             "decode_attention": (_dec, "launches"), "ssd_scan": (_ssd, "launches"),
             "quantize_int8": (_cq, "quantize_launches"),
             "dequantize_int8": (_cq, "dequantize_launches")}
+# branch of a kernel -> (module, its launch counter): the SSD scan's calls
+# by the kernel they took (``ssd_scan.tensor_core_branch``)
+_BRANCHES = {"ssd_scan_tc": (_ssd, "launches_tc"), "ssd_scan_simt": (_ssd, "launches_simt")}
 _forced: str | None = None
 
 
@@ -62,8 +65,14 @@ def launch_counts() -> dict[str, int]:
     return {name: getattr(mod, attr) for name, (mod, attr) in _KERNELS.items()}
 
 
+def branch_counts() -> dict[str, int]:
+    """Calls per branch of the kernels that have two: ``ssd_scan_tc`` (the
+    tensor-core kernels) and ``ssd_scan_simt`` (the CUDA-core kernel)."""
+    return {name: getattr(mod, attr) for name, (mod, attr) in _BRANCHES.items()}
+
+
 def reset_launch_counts() -> None:
-    for mod, attr in _KERNELS.values():
+    for mod, attr in (*_KERNELS.values(), *_BRANCHES.values()):
         setattr(mod, attr, 0)
 
 
@@ -116,14 +125,20 @@ def ssd_scan(x, dt, A, Bm, Cm, *, chunk: int = 256, impl: str | None = None):
     follows the JAX package's wrapper: S itself when it divides S, else
     ``chunk`` with a ragged last chunk (zero-padded by the plain version,
     masked inside the kernel)."""
-    S = x.shape[1]
-    L = min(chunk, S) if S % min(chunk, S) == 0 else chunk
+    L = ssd_chunk_len(x.shape[1], chunk)
     if not _use_kernel(x, impl):
         return _ssd.ssd_scan_plain(x, dt, A, Bm, Cm, L)
     if needs_grad(x, dt, A, Bm, Cm):
         return KernelFunction.apply(_ssd.ssd_scan_cuda, _ssd.ssd_scan_plain, {"chunk": L},
                                     x, dt, A, Bm, Cm)
     return _ssd.ssd_scan_cuda(x, dt, A, Bm, Cm, chunk=L)
+
+
+def ssd_chunk_len(S: int, chunk: int) -> int:
+    """The chunk length the scan runs at (the JAX package's wrapper's rule):
+    S itself when it fits in ``chunk`` (and so divides itself), else
+    ``chunk``, with a ragged last chunk when it does not divide S."""
+    return min(chunk, S) if S % min(chunk, S) == 0 else chunk
 
 
 def quantize_int8(x, *, impl: str | None = None):

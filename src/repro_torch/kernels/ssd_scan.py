@@ -1,22 +1,39 @@
-"""Mamba2 SSD chunked scan: a CUDA C++ kernel for Hopper (``csrc/ssd_scan.cu``).
+"""Mamba2 SSD chunked scan: CUDA C++ kernels for Hopper (``csrc/ssd_scan.cu``).
 
 Replaces ``src/repro/kernels/ssd_scan.py`` ``ssd_scan_kernel`` (Pallas,
 ``_ssd_kernel``).  On the H100 it is bound by bytes at the main path's
 shapes (mamba2-130m: B 2, S 1024, H 24, P 64, G 1, N 128, chunk 256): about
-15 MB in and out against 3.4 GFLOP.  The design: one block per (batch row,
-head, 32-wide slice of P), the chunks a loop inside the block with the
-slice's state in shared memory, each chunk walked in 64-row tiles so no
-(L,L) score matrix is ever held; the products run on the CUDA cores (see
-the source note for what bounds it and what comes next).
+15 MB in and out against 3.4 GFLOP.  Two hand-written kernels, chosen on the
+host by :func:`tensor_core_branch` from the dtype and the shape:
 
-The kernel reads the model's ``(B,S,H,P)``, ``(B,S,H)`` and ``(B,S,G,N)``
-tensors in place through their strides: no pad, reshape or transpose
-copies.  Positions past S read as zero inside the kernel.
+* the tensor-core branch (bf16, P and N multiples of 16 up to 64 and 128,
+  L a multiple of 64; A <= 0 and dt >= 0, as Mamba2's A = -exp(A_log) and
+  softplus dt give, since the decay is factored on that condition): the
+  chunks in parallel, in the published SSD
+  decomposition -- chunk states (the state passing in the last block of
+  each (batch row, head), found by a counter), then the chunk scan --
+  with every product on ``mma.sync``; the fp32 operands (decayed scores,
+  x * w, the entering state) enter as bf16 hi/lo pairs.  Two launches;
+  fp32 scratch for the chunk states, cum and dt, bf16 scratch for the
+  entering states and int32 counters, kept per device and reused from call
+  to call (calls on one device must therefore run on one stream, one after
+  another, as the model's do);
+* the CUDA-core branch (fp32, where TF32 would break the 2e-4 hold, and
+  every other shape): one block per (batch row, head, 32-wide slice of P),
+  the chunks a loop inside the block with the slice's state in shared
+  memory, the products on the CUDA cores.
 
-``ssd_scan_cuda`` launches the kernel (or raises); :func:`ssd_scan_plain`
+This is dispatch by type and shape: a CUDA tensor goes to one of the two
+kernels, or the launch raises.  Both read the model's ``(B,S,H,P)``,
+``(B,S,H)`` and ``(B,S,G,N)`` tensors in place through their strides (the
+tensor-core branch copies x, B or C only if its rows do not lie on 16
+bytes, ``_build.rows_aligned``); positions past S read as zero inside the
+kernels.
+
+``ssd_scan_cuda`` launches a kernel (or raises); :func:`ssd_scan_plain`
 (from ``kernels/ref.py``, the chunked algorithm) is the plain version that
-``ops.ssd_scan`` takes for a tensor on the CPU.  ``launches`` counts kernel
-launches.
+``ops.ssd_scan`` takes for a tensor on the CPU.  ``launches`` counts calls;
+``launches_tc`` and ``launches_simt`` count them by branch.
 """
 from __future__ import annotations
 
@@ -27,13 +44,32 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import ssd_scan as ssd_scan_plain
 
-__all__ = ["ssd_scan_cuda", "ssd_scan_plain", "launches"]
+__all__ = ["ssd_scan_cuda", "ssd_scan_plain", "tensor_core_branch", "launches",
+           "launches_tc", "launches_simt"]
 
-#: kernel launches so far (reset by ``ops.reset_launch_counts``)
+#: calls launched so far, either branch (reset by ``ops.reset_launch_counts``)
 launches = 0
+#: calls that took the tensor-core branch (two kernel launches each)
+launches_tc = 0
+#: calls that took the CUDA-core branch (one kernel launch each)
+launches_simt = 0
+
+TC_TILE = 64                       # positions per tile of the tensor-core kernels
+TC_MAX_P, TC_MAX_N, TC_MAX_L = 64, 128, 2048
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = [_P] * 7 + [_I] * 4 + [_L] + [_I] * 5 + [_L] * 15 + [_P]
+_TC_ARGTYPES = [_P] * 11 + [_I, _L] + [_I] * 5 + [_L] * 15 + [_P]
+_device: dict = {}      # device index -> [counters, fp32 scratch, bf16 scratch]
+
+
+def tensor_core_branch(dtype, P: int, N: int, L: int) -> bool:
+    """True when a scan of x, B and C in ``dtype`` with head dim P, state
+    dim N and chunk length L takes the tensor-core kernels: bf16 (fp32
+    stays on the CUDA cores: TF32 would break the 2e-4 hold), P and N
+    multiples of 16 up to 64 and 128, L a multiple of 64 up to 2048."""
+    return (dtype == torch.bfloat16 and P % 16 == 0 and 0 < P <= TC_MAX_P
+            and N % 16 == 0 and 0 < N <= TC_MAX_N and L % TC_TILE == 0 and 0 < L <= TC_MAX_L)
 
 
 def ssd_scan_cuda(x, dt, A, Bm, Cm, *, chunk: int):
@@ -45,7 +81,7 @@ def ssd_scan_cuda(x, dt, A, Bm, Cm, *, chunk: int):
 
 
 def _launch(x, dt, A, Bm, Cm, chunk, stream):
-    global launches
+    global launches, launches_tc, launches_simt
     B, S, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
     if (tuple(dt.shape) != (B, S, H) or tuple(A.shape) != (H,)
@@ -53,17 +89,54 @@ def _launch(x, dt, A, Bm, Cm, chunk, stream):
             or H % G != 0):
         raise ValueError(f"ssd_scan: shapes x {tuple(x.shape)} dt {tuple(dt.shape)} "
                          f"A {tuple(A.shape)} B {tuple(Bm.shape)} C {tuple(Cm.shape)}")
-    x, Bm, Cm = (_build.unit_last(t) for t in (x, Bm, Cm))
     A32 = A.to(torch.float32).contiguous()                  # (H,): a few bytes
     y = torch.empty((B, S, H, P), dtype=x.dtype, device=x.device)
     state = torch.empty((B, H, P, N), dtype=torch.float32, device=x.device)
-    fn = _build.function("avec_ssd_scan", _ARGTYPES)
-    rc = fn(x.data_ptr(), dt.data_ptr(), A32.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
-            y.data_ptr(), state.data_ptr(),
-            _build.dtype_code(x), _build.dtype_code(Bm) if Bm.dtype == Cm.dtype else -1,
-            _build.dtype_code(dt), B, S, H, P, G, N, chunk,
-            *x.stride()[:3], *dt.stride(), *Bm.stride()[:3], *Cm.stride()[:3],
-            *y.stride()[:3], stream)
-    _build.check(rc, "ssd_scan")
+    if Bm.dtype == Cm.dtype == x.dtype and S > 0 and tensor_core_branch(x.dtype, P, N, chunk):
+        if dt.dtype != torch.float32:
+            raise TypeError(f"ssd_scan: dt must be float32, not {dt.dtype}")
+        x, Bm, Cm = (_build.aligned_rows(t) for t in (x, Bm, Cm))
+        nc = -(-S // chunk)
+        n_states = B * H * nc * P * N
+        counter, f32, b16 = _buffers(x.device, B * H, n_states + B * H * nc * (2 * chunk + 1),
+                                     2 * n_states)
+        fn = _build.function("avec_ssd_scan_tc", _TC_ARGTYPES)
+        rc = fn(x.data_ptr(), dt.data_ptr(), A32.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+                y.data_ptr(), state.data_ptr(), f32.data_ptr(), b16.data_ptr(),
+                b16.data_ptr() + 2 * n_states, counter.data_ptr(), B, S, H, P, G, N, chunk,
+                *x.stride()[:3], *dt.stride(), *Bm.stride()[:3], *Cm.stride()[:3],
+                *y.stride()[:3], stream)
+        _build.check(rc, "ssd_scan (tensor cores)")
+        launches_tc += 1
+    else:
+        x, Bm, Cm = (_build.unit_last(t) for t in (x, Bm, Cm))
+        fn = _build.function("avec_ssd_scan", _ARGTYPES)
+        rc = fn(x.data_ptr(), dt.data_ptr(), A32.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+                y.data_ptr(), state.data_ptr(),
+                _build.dtype_code(x), _build.dtype_code(Bm) if Bm.dtype == Cm.dtype else -1,
+                _build.dtype_code(dt), B, S, H, P, G, N, chunk,
+                *x.stride()[:3], *dt.stride(), *Bm.stride()[:3], *Cm.stride()[:3],
+                *y.stride()[:3], stream)
+        _build.check(rc, "ssd_scan (CUDA cores)")
+        launches_simt += 1
     launches += 1
     return y, state
+
+
+def _buffers(dev, n_counters: int, n_f32: int, n_bf16: int):
+    """(counters, fp32 scratch, bf16 scratch) of ``dev``, grown to at least
+    the sizes asked for; the counters are zero between calls (the kernel
+    resets them)."""
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    st = _device.get(idx)
+    if st is None:
+        st = _device[idx] = [torch.zeros(0, dtype=torch.int32, device=dev),
+                             torch.empty(0, dtype=torch.float32, device=dev),
+                             torch.empty(0, dtype=torch.bfloat16, device=dev)]
+    if st[0].numel() < n_counters:
+        st[0] = torch.zeros(max(n_counters, 256), dtype=torch.int32, device=dev)
+    if st[1].numel() < n_f32:
+        st[1] = torch.empty(n_f32, dtype=torch.float32, device=dev)
+    if st[2].numel() < n_bf16:
+        st[2] = torch.empty(n_bf16, dtype=torch.bfloat16, device=dev)
+    return st

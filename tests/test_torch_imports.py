@@ -12,7 +12,7 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
-SCRIPTS = [ROOT / "chip_smoke.py", ROOT / "attention_ab.py"]
+SCRIPTS = [ROOT / "chip_smoke.py", ROOT / "kernel_ab.py"]
 
 
 def _forbidden(name: str) -> bool:
