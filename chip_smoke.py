@@ -29,10 +29,14 @@ Phases (any failed check exits non-zero):
    the int8 quantize/dequantize kernels at every gradient leaf shape of
    granite-3-2b and mamba2-130m (fp32 and bf16 input), with rows that tie
    at k + 0.5, all-zero rows, rows of +-absmax and rows holding NaN or Inf:
-   q equal, scale within rtol 1e-6 (NaN and Inf in place), timed at w_gate's
-   and wq's shapes and summed over one exchange's 11 leaves (dequantize's
-   yardstick ``torch.mul(q, scale)``, timed only; no single PyTorch call
-   quantizes per row);
+   q equal, scale within rtol 1e-6 (NaN and Inf in place), every model
+   leaf on the quantize's vector branch; rows off 16 bytes (``x[:, 1:]``)
+   on its scalar branch; fp32 rows within 4 ulps of a tie at scales that
+   are not powers of two (absmax up to 3e38 and under 1e-12); timed at
+   w_gate's and wq's shapes and summed over one exchange's 11 leaves, the
+   quantize in bf16 and in fp32, with its wrapper's host time
+   (dequantize's yardstick ``torch.mul(q, scale)``, timed only; no single
+   PyTorch call quantizes per row);
 3b. each kernel's ``torch.autograd.Function`` (rmsnorm, flash attention,
    SSD scan) against the plain path at the training path's shapes, bf16 and
    fp32, ragged lengths and head_dim 16: the forward output at the kernel's
@@ -307,7 +311,7 @@ def ssd_checks(gen, dev) -> float:
         args = ssd_inputs(gen, dev, B, S, H, P, G, N, dt_)
         ops.reset_launch_counts()
         y, st = ops.ssd_scan(*args, chunk=L)
-        branch = ops.branch_counts()
+        branch = {k: v for k, v in ops.branch_counts().items() if k.startswith("ssd_scan")}
         y2, st2 = ops.ssd_scan(*args, chunk=L)
         yr, sr = ops.ssd_scan(*args, chunk=L, impl="ref")
         torch.cuda.synchronize()
@@ -497,6 +501,21 @@ def special_rows(dev, cols: int) -> torch.Tensor:
     return torch.from_numpy(rows.astype(np.float32)).to(dev)
 
 
+def near_tie_rows(gen, dev, absmax: float, rows: int = 1024, cols: int = 2048) -> torch.Tensor:
+    """fp32 rows whose x / scale lies within 0 to 4 ulps of k + 0.5, at
+    scale = max(absmax, 1e-12) / 127 (fp32), absmax in column 0."""
+    s = torch.tensor(max(absmax, 1e-12), dtype=torch.float32) / torch.tensor(127.0)
+    k = torch.randint(-126, 126, (rows, cols), generator=gen, device=dev).float()
+    x = (k + 0.5) * s.to(dev)
+    off = torch.randint(-4, 5, (rows, cols), generator=gen, device=dev)
+    inf = torch.full_like(x, float("inf"))
+    for _ in range(4):
+        x = torch.where(off != 0, torch.nextafter(x, torch.where(off > 0, inf, -inf)), x)
+        off = off - off.sign()
+    x[:, 0] = absmax
+    return x
+
+
 def same_nonfinite(a, b) -> bool:
     """a and b hold NaN at the same places and the same Inf at the same
     places."""
@@ -524,7 +543,10 @@ def quant_checks(gen, dev) -> dict:
     same rows as the plain version's, q 0 wherever the quotient is NaN (what
     the reference's cast gives, held on the CPU by the tests; the plain
     version's own cast of NaN is not compared), and the row dequantized to
-    all NaN, so a non-finite gradient stays non-finite."""
+    all NaN, so a non-finite gradient stays non-finite.  Each quantize is
+    checked to take its branch: the vector path wherever D is a multiple
+    of the 16-byte vector (every model leaf), the scalar loop elsewhere and
+    on rows off 16 bytes; and on near-tie rows (:func:`near_tie_rows`)."""
     from repro_torch.kernels import comm_quant as cq
     from repro_torch.kernels import ops
 
@@ -540,7 +562,10 @@ def quant_checks(gen, dev) -> dict:
             base[:N_SPECIAL] = special_rows(dev, cols)
         for dt in (torch.float32, torch.bfloat16):
             x = base.to(dt)
+            ops.reset_launch_counts()
             q, s = ops.quantize_int8(x)
+            branch = "vec" if cols % (16 // x.element_size()) == 0 else "scalar"
+            took = ops.branch_counts()[f"quantize_int8_{branch}"] == 1
             qr, sr = ops.quantize_int8(x, impl="ref")
             torch.cuda.synchronize()
             nan_q = (x.float() / sr).isnan()          # x / NaN and Inf / Inf
@@ -548,7 +573,7 @@ def quant_checks(gen, dev) -> dict:
             fs = sr.isfinite()
             es = ((s[fs] - sr[fs]).abs() / sr[fs].abs()).max().item()
             ok = (eq == 0 and es <= 1e-6 and same_nonfinite(s, sr) and not bool(q[nan_q].any())
-                  and q.dtype == torch.int8 and tuple(s.shape) == (rows, 1))
+                  and q.dtype == torch.int8 and tuple(s.shape) == (rows, 1) and took)
             # the wire codec's numpy mirror (host IEEE arithmetic) on up to
             # 4096 rows, the special rows among them
             n = min(rows, 4096)
@@ -569,13 +594,38 @@ def quant_checks(gen, dev) -> dict:
             within = bool(((dq - xf).abs() <= absmax / 254 + absmax * 2.0 ** -22).all())
             all_nan = bool(deq[~fin].isnan().all())
             check(ok and ed == 0 and ed_bf == 0 and within and all_nan,
-                  f"int8 codec ({rows}, {cols}) {dt}: q max diff {eq}, scale rel err {es:.1e}, "
+                  f"int8 codec ({rows}, {cols}) {dt} ({branch} branch): q max diff {eq}, "
+                  f"scale rel err {es:.1e}, "
                   f"dequantize err {ed:.1e} (bf16 out {ed_bf:.1e}), round trip within "
                   f"absmax/254, {int((~fin).sum())} non-finite rows all NaN")
             if (rows, cols) == (81920, 8192) and dt == torch.float32:
                 errs = {"quantize_int8": float(eq), "dequantize_int8": ed}
             del x, q, s, qr, sr, deq, deq_bf, want, want_bf, nan_q
         del base
+    # rows off 16 bytes (a view past the first column of a contiguous
+    # tensor) take the scalar loop
+    for dt in (torch.float32, torch.bfloat16):
+        x = torch.randn(4096, 2049, generator=gen, device=dev).to(dt)[:, 1:]
+        ops.reset_launch_counts()
+        q, s = ops.quantize_int8(x)
+        took = ops.branch_counts()["quantize_int8_scalar"] == 1
+        qr, sr = ops.quantize_int8(x, impl="ref")
+        check(took and torch.equal(q, qr) and torch.equal(s, sr),
+              f"quantize_int8 on x[:, 1:] of a (4096, 2049) {dt} tensor (rows off 16 bytes): "
+              f"scalar branch, q and scale equal")
+    # x / scale within 0-4 ulps of k + 0.5, at scales that are not powers of
+    # two (fp32: a bf16 value cannot lie that close), the reciprocal's tie
+    # guard's cases; absmax near FLT_MAX and near the 1e-12 floor too
+    for absmax in (3.7, 0.013, 5.9e-3, 3.0e38, 1.1e-12, 1e-13):
+        x = near_tie_rows(gen, dev, absmax)
+        ops.reset_launch_counts()
+        q, s = ops.quantize_int8(x)
+        took = ops.branch_counts()["quantize_int8_vec"] == 1
+        qr, sr = ops.quantize_int8(x, impl="ref")
+        check(took and torch.equal(q, qr) and torch.equal(s, sr),
+              f"quantize_int8 on {tuple(x.shape)} near-tie rows, absmax {absmax:g}: vector branch, "
+              f"q equal ({int((q != qr).sum())} differ), scale equal")
+    ops.reset_launch_counts()
     # leaf helpers on a strided (non-contiguous) leaf and a rank-1 leaf
     g = torch.randn(8, 6, 40, generator=gen, device=dev).transpose(0, 1)
     for leaf in (g, g[0, :, 0]):
@@ -630,33 +680,50 @@ def exchange_times(gen, dev, rows: dict) -> None:
     """The int8 kernels over one compressed exchange of granite-3-2b's
     gradients (``compressed_psum``): quantize_int8 on each of the 11 leaves'
     rows in bf16 (the parameter dtype, read directly) and dequantize_int8
-    back to fp32, timed leaf by leaf and summed, beside the summed bounds.
-    Added to ``rows`` as each kernel's ``per_exchange``."""
+    back to fp32, and quantize_int8 on the same rows in fp32 (the pass
+    ``ErrorFeedback`` runs on the corrected gradients), timed leaf by leaf
+    and summed, beside the summed bounds.  Added to ``rows`` as each
+    kernel's ``per_exchange`` (and the quantize's ``per_exchange_fp32``),
+    with the quantize wrapper's host time per call at the (40, 2048) norm
+    leaf."""
     from repro_torch.configs import get_arch
     from repro_torch.kernels import comm_quant as cq
+    from repro_torch.kernels import ops
     from repro_torch.kernels.comm_quant import leaf_rows
     from repro_torch.models import model as M
     from repro_torch.utils import tree_leaves
 
-    total = {k: {"launches": 0, "ms": 0.0, "bound_ms": 0.0} for k in rows}
+    names = ("quantize_int8", "quantize_int8 fp32", "dequantize_int8")
+    total = {k: {"launches": 0, "ms": 0.0, "bound_ms": 0.0} for k in names}
     for t in tree_leaves(M.abstract_params(get_arch("granite-3-2b"))):   # meta tensors
         n_rows, cols = leaf_rows(t).shape
-        x = torch.randn(n_rows, cols, generator=gen, device=dev).to(torch.bfloat16)
+        xf = torch.randn(n_rows, cols, generator=gen, device=dev)
+        x = xf.to(torch.bfloat16)
         q, s = cq.quantize_int8_cuda(x)
         n = x.numel()
         for name, fn, moved in (("quantize_int8", lambda x=x: cq.quantize_int8_cuda(x),
                                  2 * n + n + 4 * n_rows),
+                                ("quantize_int8 fp32", lambda xf=xf: cq.quantize_int8_cuda(xf),
+                                 4 * n + n + 4 * n_rows),
                                 ("dequantize_int8", lambda q=q, s=s: cq.dequantize_int8_cuda(q, s),
                                  n + 4 * n_rows + 4 * n)):
             total[name]["launches"] += 1
             total[name]["ms"] += time_ms(fn, iters=5)
             total[name]["bound_ms"] += bound_ms(moved, 0, torch.float32)[0]
-        del x, q, s
+        del x, xf, q, s
     torch.cuda.empty_cache()
+    rows["quantize_int8"]["per_exchange"] = total["quantize_int8"]
+    rows["quantize_int8"]["per_exchange_fp32"] = total["quantize_int8 fp32"]
+    rows["dequantize_int8"]["per_exchange"] = total["dequantize_int8"]
     for name, t in total.items():
-        rows[name]["per_exchange"] = t
-        print(f"  {name} over one exchange ({t['launches']} leaves, bf16 gradients): kernel "
-              f"{t['ms']:.4f} ms, bound {t['bound_ms']:.4f} ms (bytes)", flush=True)
+        what = "fp32 gradients" if "fp32" in name else "bf16 gradients"
+        print(f"  {name.split()[0]} over one exchange ({t['launches']} leaves, {what}): kernel "
+              f"{t['ms']:.5f} ms, bound {t['bound_ms']:.5f} ms (bytes)", flush=True)
+    x = torch.randn(40, 2048, generator=gen, device=dev).to(torch.bfloat16)
+    rows["quantize_int8"]["host_us"] = host_us(lambda: ops.quantize_int8(x))
+    ops.reset_launch_counts()
+    print(f"  quantize_int8 wrapper host {rows['quantize_int8']['host_us']:.1f} us/call "
+          f"(x (40, 2048) bf16)", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -821,7 +888,8 @@ def small_train_check(arch: str, seed: int, dev) -> None:
 # ---------------------------------------------------------------------------
 
 def all_counts() -> dict:
-    """Every kernel's launch count, and the SSD scan's by branch."""
+    """Every kernel's launch count, and the SSD scan's and the quantize's by
+    branch."""
     from repro_torch.kernels import ops
     return {**ops.launch_counts(), **ops.branch_counts()}
 
@@ -834,7 +902,8 @@ def expected_counts(cfg) -> dict:
     decode attention once per layer per step (an SSM decode step is one
     plain ``ssd_step``)."""
     L, n_fwd = cfg.num_layers, 1 + N_DECODE + 1
-    quant = {"quantize_int8": 0, "dequantize_int8": 0}     # serving quantizes on the host
+    quant = {"quantize_int8": 0, "dequantize_int8": 0,      # serving quantizes on the host
+             "quantize_int8_vec": 0, "quantize_int8_scalar": 0}
     if cfg.family == "ssm":
         return {"rmsnorm": (2 * L + 1) * n_fwd, "flash_attention": 0, "decode_attention": 0,
                 "ssd_scan": 2 * L, **quant, "ssd_scan_tc": 2 * L, "ssd_scan_simt": 0}
@@ -956,7 +1025,7 @@ def expected_train_counts(cfg) -> dict:
     L = cfg.num_layers
     return {"rmsnorm": 2 * 2 * L + 1, "flash_attention": 2 * L, "decode_attention": 0,
             "ssd_scan": 0, "quantize_int8": 0, "dequantize_int8": 0, "ssd_scan_tc": 0,
-            "ssd_scan_simt": 0}
+            "ssd_scan_simt": 0, "quantize_int8_vec": 0, "quantize_int8_scalar": 0}
 
 
 def row_bound(g):
@@ -1054,8 +1123,10 @@ def train_path(seed: int, dev, profile: bool = False) -> dict:
           f"{wire_rows / 1e9:.4f} GB (dcn_wire_bytes {wire_c / 1e9:.4f} GB) vs fp32 "
           f"{wire_f / 1e9:.4f} GB; launches {counts['exchange']}", flush=True)
     check(counts["exchange"]["quantize_int8"] == n_leaves == 11
-          and counts["exchange"]["dequantize_int8"] == n_leaves,
-          f"the exchange quantizes and dequantizes each of the {n_leaves} leaves once")
+          and counts["exchange"]["dequantize_int8"] == n_leaves
+          and counts["exchange"]["quantize_int8_vec"] == n_leaves,
+          f"the exchange quantizes and dequantizes each of the {n_leaves} leaves once, every "
+          f"quantize on the vector branch")
     worst = 0.0
     for (path, g), r in zip(tree_leaves_with_path(grads), tree_leaves(reduced_g)):
         err = (leaf_rows(r).float() - leaf_rows(g).float()).abs()
@@ -1088,8 +1159,9 @@ def train_path(seed: int, dev, profile: bool = False) -> dict:
     counts["compress"] = all_counts()
     check(ef["quantize_int8"] == ef["dequantize_int8"] == n_leaves
           and counts["compress"]["quantize_int8"] == counts["compress"]["dequantize_int8"]
-          == 2 * n_leaves, f"one quantize and one dequantize per leaf per pass "
-                           f"(ErrorFeedback, then compress/decompress): {counts['compress']}")
+          == counts["compress"]["quantize_int8_vec"] == 2 * n_leaves,
+          f"one quantize and one dequantize per leaf per pass (ErrorFeedback, then "
+          f"compress/decompress), every quantize on the vector branch: {counts['compress']}")
     check(wire == wire_rows, f"compress_tree wire bytes {wire} == sum(rows*cols + 4*rows)")
     within = all(bool(((leaf_rows(b).float() - leaf_rows(g).float()).abs() <= row_bound(g)).all())
                  for b, g in zip(tree_leaves(back), tree_leaves(grads)))
@@ -1210,11 +1282,14 @@ def main(argv=None) -> int:
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                 "library_ms": r["library_ms"],
-                **{key: r[key] for key in ("host_us", "at_other_shapes", "per_exchange")
-                   if key in r},
+                **{key: r[key] for key in ("host_us", "at_other_shapes", "per_exchange",
+                                           "per_exchange_fp32") if key in r},
                 **({"launches_by_branch": {"tensor_cores": counts["ssd_scan_tc"],
                                            "cuda_cores": counts["ssd_scan_simt"]}}
-                   if name == "ssd_scan" else {})}
+                   if name == "ssd_scan" else {}),
+                **({"launches_by_branch": {"vector": counts["quantize_int8_vec"],
+                                           "scalar": counts["quantize_int8_scalar"]}}
+                   if name == "quantize_int8" else {})}
                for name, r in rows.items()]
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))

@@ -12,11 +12,19 @@ absmax_row/254`` plus float32 eps.
 
 On the H100 both kernels are bound by bytes (quantize reads 4 B and writes
 1 B per element plus 4 B per row; dequantize reads 1 B and writes 4 B).
-The design: one warp per row in a grid-stride loop, a shuffle max of
-``|x|``, a second pass over the L2-resident row to write ``q``.  ``q`` is
-bit-exact with the plain version (IEEE division, round half to even).  The
-kernel also reads bf16 directly, whose conversion to fp32 is exact, so
+The quantize reads each row once in 16-byte vectors held in registers,
+under the launch plan of ``rowplan.row_plan`` (threads per row follow D,
+rows packed per block, at least ``MIN_PER`` vectors a thread; shared with
+rmsnorm), reduces the NaN-propagating max of ``|x|`` over the row's threads
+and writes ``q`` from the registers.  Rows off 16 bytes or a D that is not
+a multiple of the vector take a scalar loop in the same kernel: dispatch by
+alignment and shape, counted per branch (``quantize_launches_vec`` /
+``quantize_launches_scalar``).  ``q`` is bit-exact with the plain version
+(the IEEE quotient, round half to even; the kernel multiplies by a per-row
+reciprocal and divides only near a tie, ``csrc/comm_quant.cu``).  The
+kernel reads bf16 directly, whose conversion to fp32 is exact, so
 :func:`quantize_leaf` makes no fp32 copy of a bf16 gradient on the card.
+Dequantize: one warp per row in a grid-stride loop.
 
 Leaf layout: a leaf of any rank is quantized over :func:`leaf_rows` (rank
 >= 2 collapses leading axes onto rows of the final axis; rank 0/1 is one
@@ -26,7 +34,9 @@ stride; ``leaf_rows`` of a non-contiguous leaf is a contiguous copy.
 ``quantize_int8_cuda`` / ``dequantize_int8_cuda`` launch the kernels (or
 raise); :func:`quantize_int8_plain` / :func:`dequantize_int8_plain` (from
 ``kernels/ref.py``) are the plain versions ``ops`` takes for tensors on the
-CPU.  ``quantize_launches`` and ``dequantize_launches`` count launches.
+CPU.  ``quantize_launches`` and ``dequantize_launches`` count launches,
+``quantize_launches_vec`` and ``quantize_launches_scalar`` the quantize's by
+branch.
 """
 from __future__ import annotations
 
@@ -38,17 +48,22 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import dequantize_int8 as dequantize_int8_plain
 from repro_torch.kernels.ref import quantize_int8 as quantize_int8_plain
+from repro_torch.kernels.rowplan import Plan, row_plan
 
 __all__ = ["leaf_rows", "quantize_int8_np", "dequantize_int8_np", "quantize_leaf",
-           "dequantize_leaf", "quantize_int8_cuda", "dequantize_int8_cuda",
+           "dequantize_leaf", "quantize_plan", "quantize_int8_cuda", "dequantize_int8_cuda",
            "quantize_int8_plain", "dequantize_int8_plain"]
 
 #: kernel launches so far (reset by ``ops.reset_launch_counts``)
 quantize_launches = 0
 dequantize_launches = 0
+#: quantize launches by branch: rows in 16-byte vectors, or the scalar loop
+quantize_launches_vec = 0
+quantize_launches_scalar = 0
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_ARGTYPES = [_P, _P, _P, _I, _L, _I, _L, _L, _P]
+_QUANT_ARGTYPES = [_P, _P, _P, _I, _L, _I, _L, _L, _I, _I, _I, _P]
+_DEQUANT_ARGTYPES = [_P, _P, _P, _I, _L, _I, _L, _L, _P]
 
 
 # ---------------------------------------------------------------------------
@@ -100,10 +115,24 @@ def dequantize_leaf(q, s, shape, dtype, *, impl: str | None = None):
 # The kernels
 # ---------------------------------------------------------------------------
 
+#: vectors a thread holds at least (``row_plan``'s ``min_per``): four loads
+#: of 16 bytes in flight per thread, where one a thread (rmsnorm's rule at
+#: D 2048 bf16) left the card a third below its memory rate
+MIN_PER = 4
+
+
+def quantize_plan(x) -> Plan:
+    """The launch plan for x (N, D): the vector path needs x's rows on 16
+    bytes.  q's rows then lie on the vector's store width by construction
+    (a fresh allocation, row stride D, a multiple of the vector); the C
+    entry point checks both."""
+    return row_plan(x.shape[1], x.element_size(), _build.rows_aligned(x), MIN_PER)
+
+
 def quantize_int8_cuda(x):
     """x: (N, D) f32 or bf16 on the card, unit last stride -> (q (N, D)
     int8, scale (N, 1) f32)."""
-    global quantize_launches
+    global quantize_launches, quantize_launches_vec, quantize_launches_scalar
     _build.require_cuda("quantize_int8", x)
     if x.ndim != 2:
         raise ValueError(f"quantize_int8: x must be (N, D), got {tuple(x.shape)}")
@@ -111,11 +140,17 @@ def quantize_int8_cuda(x):
     N, D = x.shape
     q = torch.empty((N, D), dtype=torch.int8, device=x.device)
     scale = torch.empty((N, 1), dtype=torch.float32, device=x.device)
-    fn = _build.function("avec_quantize_int8", _ARGTYPES)
+    plan = quantize_plan(x)
+    fn = _build.function("avec_quantize_int8", _QUANT_ARGTYPES)
     rc = fn(x.data_ptr(), q.data_ptr(), scale.data_ptr(), _build.dtype_code(x),
-            N, D, x.stride(0), q.stride(0), _build.current_stream(x))
+            N, D, x.stride(0), q.stride(0), plan.per, plan.tpr, plan.rpb,
+            _build.current_stream(x))
     _build.check(rc, "quantize_int8")
     quantize_launches += 1
+    if plan.per:
+        quantize_launches_vec += 1
+    else:
+        quantize_launches_scalar += 1
     return q, scale
 
 
@@ -131,7 +166,7 @@ def dequantize_int8_cuda(q, scale, dtype=torch.float32):
     q = _build.unit_last(q)
     s = scale.reshape(N).contiguous()
     out = torch.empty((N, D), dtype=dtype, device=q.device)
-    fn = _build.function("avec_dequantize_int8", _ARGTYPES)
+    fn = _build.function("avec_dequantize_int8", _DEQUANT_ARGTYPES)
     rc = fn(q.data_ptr(), s.data_ptr(), out.data_ptr(), _build.dtype_code(out),
             N, D, q.stride(0), out.stride(0), _build.current_stream(q))
     _build.check(rc, "dequantize_int8")

@@ -19,56 +19,11 @@
 // Rows that do not lie on 16 bytes, or a D that is not a multiple of the
 // vector, take a scalar loop in the same kernel (PER = 0), which reads the
 // row twice.  The host (rmsnorm.py `rmsnorm_plan`) chooses PER, the
-// threads per row and the rows per block; any row count and any D.
+// threads per row and the rows per block (kernels/rowplan.py, shared with
+// the int8 quantize); any row count and any D.
 #include "common.cuh"
 
 namespace {
-
-// VEC consecutive values of type T at p (16 bytes of x, or the matching
-// span of scale) as floats
-template <int VEC, typename T>
-__device__ __forceinline__ void load_vec(const T* __restrict__ p, float (&out)[VEC]) {
-  if constexpr (sizeof(T) * VEC == 16) {
-    const uint4 raw = __ldg(reinterpret_cast<const uint4*>(p));
-    const T* v = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) out[i] = avec::to_float(v[i]);
-  } else if constexpr (sizeof(T) * VEC == 32) {  // VEC fp32 values of a bf16 row's scale
-    const uint4 r0 = __ldg(reinterpret_cast<const uint4*>(p));
-    const uint4 r1 = __ldg(reinterpret_cast<const uint4*>(p) + 1);
-    const T* v0 = reinterpret_cast<const T*>(&r0);
-    const T* v1 = reinterpret_cast<const T*>(&r1);
-#pragma unroll
-    for (int i = 0; i < VEC / 2; ++i) {
-      out[i] = avec::to_float(v0[i]);
-      out[i + VEC / 2] = avec::to_float(v1[i]);
-    }
-  } else {  // 8 bytes: VEC bf16 values of an fp32 row's scale
-    static_assert(sizeof(T) * VEC == 8, "16-byte rows");
-    const uint2 raw = __ldg(reinterpret_cast<const uint2*>(p));
-    const T* v = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) out[i] = avec::to_float(v[i]);
-  }
-}
-
-// the sum of v over the tpr threads of each row (tpr a power of two up to
-// 32, or a multiple of 32); `partial` holds a float per warp
-__device__ __forceinline__ float row_sum(float v, int tpr, float* partial) {
-  const int width = tpr < 32 ? tpr : 32;
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    if (o < width) v += __shfl_xor_sync(0xffffffffu, v, o);
-  if (tpr > 32) {  // uniform across the block
-    const int warp = threadIdx.x >> 5, per_row = tpr >> 5;
-    if ((threadIdx.x & 31) == 0) partial[warp] = v;
-    __syncthreads();
-    const int first = warp - warp % per_row;
-    v = 0.f;
-    for (int w = 0; w < per_row; ++w) v += partial[first + w];
-  }
-  return v;
-}
 
 // PER > 0: each thread holds PER vectors of the row; PER == 0: the scalar loop
 template <typename T, typename TS, int PER>
@@ -96,7 +51,7 @@ __global__ void rmsnorm_kernel(const T* __restrict__ x, const TS* __restrict__ s
         for (int i = 0; i < VEC; ++i) ss += v[k][i] * v[k][i];
       }
     }
-    const float r = rsqrtf(row_sum(ss, tpr, avec_smem) / (float)D + eps);
+    const float r = rsqrtf(row_reduce(ss, tpr, avec_smem, Add{}) / (float)D + eps);
 #pragma unroll
     for (int k = 0; k < PER; ++k) {
       const int vi = q + k * tpr;
@@ -117,7 +72,7 @@ __global__ void rmsnorm_kernel(const T* __restrict__ x, const TS* __restrict__ s
         const float v = to_float(xr[j]);
         ss += v * v;
       }
-    const float r = rsqrtf(row_sum(ss, tpr, avec_smem) / (float)D + eps);
+    const float r = rsqrtf(row_reduce(ss, tpr, avec_smem, Add{}) / (float)D + eps);
     if (live)
       for (int j = q; j < D; j += tpr)
         yr[j] = from_float<T>(to_float(xr[j]) * r * to_float(scale[j]));
@@ -137,14 +92,8 @@ int launch(const void* x, const void* scale, void* y, long long rows, int D, lon
     kernel<<<blocks, threads, smem, stream>>>(xp, sp, yp, rows, D, xs, ys, eps, tpr);
     return (int)cudaGetLastError();
   };
-  switch (per) {
-    case 0: return go(rmsnorm_kernel<T, TS, 0>);
-    case 1: return go(rmsnorm_kernel<T, TS, 1>);
-    case 2: return go(rmsnorm_kernel<T, TS, 2>);
-    case 4: return go(rmsnorm_kernel<T, TS, 4>);
-    case 8: return go(rmsnorm_kernel<T, TS, 8>);
-    default: return avec::kUnsupported;
-  }
+  return avec::with_per(per,
+                        [&](auto p) { return go(rmsnorm_kernel<T, TS, decltype(p)::value>); });
 }
 
 template <typename T>
@@ -172,14 +121,8 @@ extern "C" int avec_rmsnorm(const void* x, const void* scale, void* y, int dtype
                             long long y_row_stride, float eps, int per, int tpr, int rpb,
                             void* stream) {
   if (rows == 0) return 0;
-  const bool tpr_ok = tpr > 0 && ((tpr <= 32 && (tpr & (tpr - 1)) == 0) || tpr % 32 == 0);
-  if (D <= 0 || rows < 0 || !tpr_ok || rpb <= 0 || tpr * rpb > 1024 || (tpr * rpb) % 32 != 0 ||
-      (rows + rpb - 1) / rpb > 0x7fffffffLL)
+  if (!avec::plan_supported(rows, D, per, tpr, rpb, dtype == avec::kF32 ? 4 : 8))
     return avec::kUnsupported;
-  if (per > 0) {
-    const int vec = dtype == avec::kF32 ? 4 : 8;
-    if (D % vec != 0 || (long long)per * tpr * vec < D) return avec::kUnsupported;
-  }
   auto s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case avec::kF32:

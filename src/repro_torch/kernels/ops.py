@@ -32,8 +32,11 @@ _KERNELS = {"rmsnorm": (_rms, "launches"), "flash_attention": (_fa, "launches"),
             "quantize_int8": (_cq, "quantize_launches"),
             "dequantize_int8": (_cq, "dequantize_launches")}
 # branch of a kernel -> (module, its launch counter): the SSD scan's calls
-# by the kernel they took (``ssd_scan.tensor_core_branch``)
-_BRANCHES = {"ssd_scan_tc": (_ssd, "launches_tc"), "ssd_scan_simt": (_ssd, "launches_simt")}
+# by the kernel they took (``ssd_scan.tensor_core_branch``), the int8
+# quantize's by its path (``comm_quant.quantize_plan``)
+_BRANCHES = {"ssd_scan_tc": (_ssd, "launches_tc"), "ssd_scan_simt": (_ssd, "launches_simt"),
+             "quantize_int8_vec": (_cq, "quantize_launches_vec"),
+             "quantize_int8_scalar": (_cq, "quantize_launches_scalar")}
 _forced: str | None = None
 
 
@@ -67,7 +70,9 @@ def launch_counts() -> dict[str, int]:
 
 def branch_counts() -> dict[str, int]:
     """Calls per branch of the kernels that have two: ``ssd_scan_tc`` (the
-    tensor-core kernels) and ``ssd_scan_simt`` (the CUDA-core kernel)."""
+    tensor-core kernels) and ``ssd_scan_simt`` (the CUDA-core kernel);
+    ``quantize_int8_vec`` (rows in 16-byte vectors) and
+    ``quantize_int8_scalar`` (the scalar loop)."""
     return {name: getattr(mod, attr) for name, (mod, attr) in _BRANCHES.items()}
 
 
