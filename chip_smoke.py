@@ -67,7 +67,21 @@ Phases (any failed check exits non-zero):
    from a file store: no network) before ``apply_updates``; then
    ``ErrorFeedback`` and ``compress_tree``/``decompress_tree`` over the same
    gradients.  Prints step wall time, peak device memory and the exchange's
-   time and wire bytes (``--profile``: one training step traced).
+   time and wire bytes (``--profile``: one training step traced);
+8. the paper's loop: OpenPose-lite (weights made on the card from
+   ``--seed``, brought to the host, sent once by ``AvecSession.ensure_model``)
+   served by a port ``DestinationExecutor`` behind ``TCPServer`` to a
+   ``PipelinedHostRuntime`` (window 2).  An unmodified loop over 4 frames of
+   368x656 calls ``op_forward`` and ``render_pose`` under
+   ``InterceptionLibrary``: ``op_forward`` goes to the card, ``render_pose``
+   stays on the host.  The beliefs are bit-identical to the destination
+   library's own call and within 1e-4 x max|belief| of the CPU path; 8 frames
+   through ``call_async`` are bit-identical to the same 8 through ``call``
+   (walls, window and ``stats()`` printed); the paper's smallest image
+   batch, B 64, twice (cold and warm, bit-identical; frame 0 against its B 1
+   forward).  Prints ``compute_s``, ``wire_s``, the bytes per cycle against
+   Eq. 1 and peak device memory; no kernel of the six is launched (cuDNN
+   convolutions) (``--profile``: the B 1 and B 64 forwards traced).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -95,6 +109,7 @@ LONG_CACHE, LONG_KV = 4096, 4000       # decode at a long cache
 SSM_S = 1024                          # mamba2-130m prompt: four chunks of 256
 # mamba2-130m's scan: (B, S, H, P, G, N, chunk)
 SSD_MAIN = (MAIN_B, SSM_S, 24, 64, 1, 128, 256)
+OP_FRAMES, OP_STREAM, OP_WINDOW = 4, 8, 2     # phase 8: the loop, the stream, the window
 
 
 class CheckFailed(AssertionError):
@@ -142,8 +157,11 @@ def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
             fn()
 
     # every call launches the same kernels, so a trace whose count is not a
-    # multiple of the calls lost events (seen once): take it again
-    for _ in range(3):
+    # multiple of the calls lost events (now and then some or all of them,
+    # at times in consecutive traces): take it again in a fresh profiler
+    # session after a growing pause
+    for pause in (0, 0.1, 0.5, 1, 2, 4):
+        time.sleep(pause)
         _, events, _ = device_events(loop)
         if events and len(events) % iters == 0:
             return sum(e.time_range.elapsed_us() for e in events) / 1e3 / iters
@@ -1174,6 +1192,173 @@ def train_path(seed: int, dev, profile: bool = False) -> dict:
     return {k: sum(c[k] for c in counts.values()) for k in counts["trainer"]}
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the paper's loop, OpenPose-lite intercepted on the host
+# ---------------------------------------------------------------------------
+
+def openpose_application(net, params, frames) -> list:
+    """An unmodified application, written like the JAX package's
+    ``examples/openpose_pipeline.py`` loop: detect and render poses frame by
+    frame through the library's module functions -> [(beliefs, rendered)]."""
+    from repro_torch.models import openpose
+
+    outputs = []
+    for i in range(frames.shape[0]):
+        frame = frames[i:i + 1]
+        beliefs = openpose.op_forward(net, params, {"frames": frame})
+        if isinstance(beliefs, dict):           # (transparent to the app)
+            beliefs = beliefs["beliefs"]
+        beliefs = torch.from_numpy(np.array(beliefs))
+        outputs.append((beliefs, openpose.render_pose(frame, beliefs)))
+    return outputs
+
+
+def openpose_path(seed: int, dev, profile: bool = False) -> dict:
+    from repro_torch.configs.avec_openpose import WORKLOAD
+    from repro_torch.core.executor import DestinationExecutor, PipelinedHostRuntime
+    from repro_torch.core.interception import ArgSpec, AvecSession, InterceptionLibrary
+    from repro_torch.core.library import make_openpose_library
+    from repro_torch.core.transport import TCPChannel, TCPServer
+    from repro_torch.kernels import ops
+    from repro_torch.models import openpose
+    from repro_torch.models.params import from_numpy_tree, init_params
+    from repro_torch.utils import to_numpy_tree
+
+    net = openpose.OpenPoseLite()
+    H, W = WORKLOAD.frame_h, WORKLOAD.frame_w
+    B_big = WORKLOAD.image_batches[0]
+    print(f"phase 8: the paper's loop, OpenPose-lite ({net.channels} channels, {net.stages} "
+          f"stages, {net.n_parts + net.n_pafs} belief maps) at {H}x{W}, intercepted on the host "
+          f"and served through PipelinedHostRuntime (window {OP_WINDOW}) over TCP", flush=True)
+    dest = DestinationExecutor({"openpose": make_openpose_library(net, device=dev)},
+                               name="h100", device=dev)
+    server = TCPServer(dest.handle).start()
+    rt = PipelinedHostRuntime(TCPChannel.connect("127.0.0.1", server.port),
+                              max_in_flight=OP_WINDOW, timeout=900.0)
+    try:
+        params_host = to_numpy_tree(init_params(openpose.op_param_specs(net), seed,
+                                                torch.float32, device=dev))
+        sess = AvecSession(net, params_host, rt, "openpose")
+        check(not sess.ensure_model() and sess.model_transfer_s is not None,
+              f"ensure_model sent the weights once ({sess.model_transfer_s:.4f} s)")
+        entry, lib = dest.cache.get(sess.fp), dest.libraries["openpose"]
+
+        def own_forward(frames):
+            """The destination library's own call, on the card."""
+            return lib["forward"](entry["params"], entry["state"],
+                                  {"frames": frames.to(dev)})["beliefs"].cpu()
+
+        frames = openpose.make_frames(OP_FRAMES, H, W, seed)
+        # warm, outside the session's profiler: cuDNN makes a handle per
+        # thread (the server's first call took 43 ms), the allocator grows
+        rt.run(sess.fp, "forward", {"frames": frames[:1]})
+
+        # 8.1: the unmodified loop, op_forward intercepted, render_pose local
+        orig = openpose.op_forward
+        disp = sess.make_argspec_dispatcher({"op_forward": ("forward", ArgSpec(position=2))})
+        ops.reset_launch_counts()
+        with InterceptionLibrary(openpose, ["op_forward", "render_pose"], disp):
+            outputs = openpose_application(net, params_host, frames)
+        per = sess.profiler.per_cycle()
+        check(len(sess.profiler.cycles) == OP_FRAMES,
+              f"the profiler holds {OP_FRAMES} offloaded cycles")
+        check(openpose.op_forward is orig, "op_forward is the original function after uninstall")
+        check(all(tuple(r.shape) == (1, H, W, 3) for _, r in outputs),
+              f"rendered frames have the input's shape {(1, H, W, 3)}")
+        shape = (1, -(-H // 8), -(-W // 8), net.n_parts + net.n_pafs)
+        check(all(tuple(b.shape) == shape and torch.isfinite(b).all() for b, _ in outputs),
+              f"beliefs finite, shape {shape}")
+        check(all(torch.equal(b, own_forward(frames[i:i + 1])) for i, (b, _) in enumerate(outputs)),
+              "intercepted beliefs bit-identical to the destination library's own forward")
+        cpu = openpose.op_forward(net, from_numpy_tree(params_host, "cpu"), frames[:1])
+        e, scale = max_err(outputs[0][0], cpu), cpu.abs().max().item()
+        check(e <= 1e-4 * scale, f"beliefs vs the CPU path: max abs err {e:.3e} "
+              f"(tolerance 1e-4 x max|belief| {scale:.4f})")
+        print(f"  per frame (mean of {OP_FRAMES}): compute_s {per['gpu_s']:.6f}  wire_s "
+              f"{per['communication_s']:.6f}  render (host) {sess.profiler.other_s / OP_FRAMES:.6f} s; "
+              f"{per['bytes_per_cycle'] / 1e6:.4f} MB on the wire per cycle "
+              f"(Eq. 1: {WORKLOAD.data_transfer_bytes() / 1e6:.4f} MB); each cycle (compute_s, "
+              f"wire_s): {[(c.gpu_s, c.comm_s) for c in sess.profiler.cycles]}", flush=True)
+
+        # 8.2: the same stream synchronous and pipelined, min of 2 passes each
+        stream = list(openpose.make_frames(OP_STREAM, H, W, seed + 1).split(1))
+
+        def sync_pass():
+            n0 = len(sess.profiler.cycles)
+            t0 = time.perf_counter()
+            outs = [np.array(sess.call("forward", {"frames": f})["beliefs"]) for f in stream]
+            wall = time.perf_counter() - t0
+            sync_cycles[:] = sess.profiler.cycles[n0:]
+            return wall, outs
+
+        def pipe_pass():
+            t0 = time.perf_counter()
+            futs = [sess.call_async("forward", {"frames": f}) for f in stream]
+            outs = [np.array(f.result()["beliefs"]) for f in futs]
+            return time.perf_counter() - t0, outs
+
+        walls = {"sync": [], "pipelined": []}
+        results, sync_cycles = {}, []
+        for _ in range(2):
+            for name, fn in (("sync", sync_pass), ("pipelined", pipe_pass)):
+                wall, results[name] = fn()
+                walls[name].append(wall)
+        check(all(np.array_equal(a, b) for a, b in zip(results["sync"], results["pipelined"])),
+              f"{OP_STREAM} frames: pipelined beliefs bit-identical to synchronous")
+        stats = rt.stats()
+        print(f"  {OP_STREAM} frames: synchronous {min(walls['sync']):.6f} s, pipelined "
+              f"{min(walls['pipelined']):.6f} s (min of 2; passes {walls}), window "
+              f"{rt.window}/{rt.max_in_flight}", flush=True)
+        print(f"  the last synchronous pass, per frame: median compute_s "
+              f"{float(np.median([c.gpu_s for c in sync_cycles])):.6f}, median wire_s "
+              f"{float(np.median([c.comm_s for c in sync_cycles])):.6f}", flush=True)
+        print(f"  rt.stats(): {json.dumps(stats)}", flush=True)
+
+        # 8.3: the paper's smallest image batch, one call cold (the allocator
+        # grows) and one warm
+        big = openpose.make_frames(B_big, H, W, seed + 2)
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        first = np.array(sess.call("forward", {"frames": big})["beliefs"])
+        peak = torch.cuda.max_memory_allocated()
+        beliefs = torch.from_numpy(np.array(sess.call("forward", {"frames": big})["beliefs"]))
+        cold, cyc = sess.profiler.cycles[-2:]
+        check(np.array_equal(first, beliefs.numpy()), f"B {B_big}: two calls bit-identical")
+        del first
+        flops = openpose.op_flops(net, H, W) * B_big
+        check(tuple(beliefs.shape) == (B_big,) + shape[1:] and torch.isfinite(beliefs).all(),
+              f"B {B_big}: beliefs finite, shape {(B_big,) + shape[1:]}")
+        e1 = max_err(beliefs[:1], own_forward(big[:1]))
+        check(e1 <= 1e-4 * beliefs[:1].abs().max().item(),
+              f"B {B_big}: frame 0 vs its B 1 forward on the card, max abs err {e1:.3e} "
+              f"(tolerance 1e-4 x max|belief|)")
+        t_bound, by = bound_ms(big.numel() * 4 + beliefs.numel() * 4, flops, torch.float32)
+        print(f"  B {B_big}: compute_s {cyc.gpu_s:.6f}  wire_s {cyc.comm_s:.6f} (the first "
+              f"call: {cold.gpu_s:.6f}, {cold.comm_s:.6f})  "
+              f"{cyc.bytes_sent / 1e6:.3f} MB out, {cyc.bytes_received / 1e6:.3f} MB back, "
+              f"{flops / 1e9:.3f} GFLOP ({flops / cyc.gpu_s / 1e12:.2f} TFLOP/s over compute_s; "
+              f"bound {t_bound:.4f} ms by {by}), peak device memory {peak / 1e9:.3f} GB "
+              f"({base / 1e9:.3f} GB allocated before the call)",
+              flush=True)
+        counts = all_counts()
+        print(f"  launches on the main path: {counts}", flush=True)
+        check(not any(counts.values()), "phase 8 launches none of the six kernels "
+              "(its convolutions are cuDNN's)")
+        if profile:
+            f1, fb = frames[:1].to(dev), big.to(dev)
+            profile_call("openpose forward B 1", lambda: lib["forward"](
+                entry["params"], entry["state"], {"frames": f1}))
+            profile_call(f"openpose forward B {B_big}", lambda: lib["forward"](
+                entry["params"], entry["state"], {"frames": fb}))
+            del f1, fb
+        return counts
+    finally:
+        rt.close()
+        server.stop()
+        dest.shutdown()
+        torch.cuda.empty_cache()
+
+
 def peak_and_reset() -> int:
     peak = torch.cuda.max_memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -1229,8 +1414,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
-                    help="trace one prefill and one decode of each served model and one "
-                         "training step (torch.profiler)")
+                    help="trace one prefill and one decode of each served model, one "
+                         "training step and the OpenPose-lite forward at B 1 and B 64 "
+                         "(torch.profiler)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on the card",
@@ -1265,7 +1451,8 @@ def main(argv=None) -> int:
     small_train_check("mamba2-130m", args.seed, dev)
     paths = [main_path("5", "granite-3-2b", MAIN_S, args.seed, dev, profile=args.profile),
              main_path("6", "mamba2-130m", SSM_S, args.seed, dev, profile=args.profile),
-             train_path(args.seed, dev, profile=args.profile)]
+             train_path(args.seed, dev, profile=args.profile),
+             openpose_path(args.seed, dev, profile=args.profile)]
     counts = {name: sum(p[name] for p in paths) for name in paths[0]}   # every main path's
 
     replaces = {"rmsnorm": "src/repro/kernels/rmsnorm.py:22",

@@ -6,7 +6,7 @@ its ``device`` (``"cuda"`` unless the caller asks for the CPU), moves
 arguments there, synchronizes the device around each call so ``compute_s``
 is device time, and brings outputs back to host numpy before packing.  The
 wire and the op set are unchanged, so a host of either package can drive a
-destination of the other.  ``PipelinedHostRuntime`` is not ported yet.
+destination of the other.
 
 Protocol (msgpack header via core.serialization, tree payloads as buffers;
 every response echoes the request's frame id so pipelined hosts can match
@@ -59,17 +59,53 @@ dominating the cycle; these are the levers that shrink it):
   ``tenant_stats`` (queue depth, drain share, throttle count, in-flight)
   and ``tenant_limits`` so ``DeviceAwareScheduler`` can penalize
   destinations where the *calling* tenant is already saturated.
+* **Pipelined host** (``PipelinedHostRuntime``): keeps up to N request
+  frames in flight on one channel, matching responses by frame id — frame
+  k+1 serializes and transmits while frame k computes at the destination
+  (double-buffered offload).
+* **Resumable, backpressure-aware sends**: over TCP, request frames go out
+  through a non-blocking resumable state machine
+  (``TCPChannel.try_send_resume``).  When the kernel send buffer fills —
+  the byte-level backpressure of a narrow real link — the submitter parks
+  the partial frame and pumps RECEIVES until the socket is writable again,
+  so host and destination can never deadlock on mutually-full buffers.
+* **Adaptive in-flight window**: ``max_in_flight`` is a cap, not the
+  operating point.  The runtime sizes the live window from the observed
+  comm/compute ratio (per-response ``compute_s`` vs measured wire time):
+  ~2 when destination compute dominates (double buffering suffices), and
+  growing toward the cap as the link dominates.
 * **Pooled receive buffers** (``repro_torch.core.memory``): frames arrive in
   recycled ``BufferPool`` slabs as ``BufferLease``s.  Runtimes release the
-  base reference once a response is unpacked (``_rpc``); decoded zero-copy leaves pin the lease until collected.
+  base reference once a response is unpacked (``_rpc`` / pipelined
+  ``_dispatch``); decoded zero-copy leaves pin the lease until collected.
   On the destination, the transport releases a request after the response
   is written, and the coalescer ``retain``s queued requests until their
   batch dispatches — steady-state offload allocates zero payload buffers
   per received frame.
+
+Runtime stats (``PipelinedHostRuntime.stats()``) — exported to
+``DeviceAwareScheduler.record_runtime_stats`` (and serving's
+``PipelinedOffloadFrontend.stats``):
+
+  bytes_sent / bytes_received   wire totals (cv-protected counters)
+  in_flight                     currently outstanding requests
+  window / max_in_flight        chosen adaptive window and its configured cap
+  send_stalls                   would-block events on the send path
+                                (byte-level backpressure hits)
+  sends_resumed                 frames that needed >1 non-blocking attempt
+  recv_retries                  clean channel recv timeouts retried inside
+                                the pump (caller deadline not yet expired)
+  throttle_retried              TenantThrottled admission responses retried
+                                with jittered backoff
+  requests_completed            responses dispatched to futures
+  wire_ema_s / compute_ema_s    the smoothed comm/compute estimates driving
+                                the window controller
 """
 from __future__ import annotations
 
 import collections
+import itertools
+import math
 import random
 import socket as _socket
 import threading
@@ -150,6 +186,18 @@ def wire_error_meta(exc: BaseException) -> dict:
     if isinstance(exc, DestinationDraining):
         return {"draining": True, "name": exc.destination}
     return {}
+
+
+def _clone_channel_exc(exc: BaseException) -> BaseException:
+    """A traceback-free copy of a channel-failure exception, same type and
+    message.  Stored (and re-raised) instead of the original: an exception
+    object held for a dead runtime's lifetime grows a traceback on every
+    raise, and that traceback pins the raising frames' locals — decoded
+    result trees and their recv-pool leases included."""
+    try:
+        return type(exc)(*exc.args) if exc.args else type(exc)(str(exc))
+    except Exception:  # noqa: BLE001 — exotic ctor signature
+        return ChannelClosed(f"{type(exc).__name__}: {exc}")
 
 
 def _throttle_backoff(attempt: int, retry_after_s: float) -> float:
@@ -1065,3 +1113,514 @@ class HostRuntime:
     def close(self) -> None:
         self._closed = True     # lets pool owners detect a dead stub
         self.channel.close()
+
+
+
+class _WindowController:
+    """Adaptive in-flight window from the observed comm/compute ratio.
+
+    Hiding the wire behind destination compute needs roughly
+    ``1 + comm/compute`` frames in flight: ~2 when compute dominates
+    (classic double buffering), more as the link dominates.  Observations
+    are EMA-smoothed; the chosen window is clamped to
+    ``[min(2, cap), cap]``.  The window STARTS at the cap — a fresh
+    runtime must not throttle a destination that batches its first burst —
+    and adapts once responses carry measurements.  Callers must serialize
+    ``observe`` externally (the runtime calls it under its condition
+    variable)."""
+
+    def __init__(self, cap: int, alpha: float = 0.25) -> None:
+        self.cap = max(int(cap), 1)
+        self.alpha = alpha
+        self.floor = min(2, self.cap)
+        self.window = self.cap
+        self.wire_ema = 0.0
+        self.compute_ema = 0.0
+        self.observations = 0
+
+    def observe(self, wire_s: float, compute_s: float) -> int:
+        """Fold one completed request's (measured wire seconds, reported
+        destination-compute seconds) into the window choice."""
+        a = self.alpha
+        if self.observations == 0:
+            self.wire_ema, self.compute_ema = wire_s, compute_s
+        else:
+            self.wire_ema = (1 - a) * self.wire_ema + a * wire_s
+            self.compute_ema = (1 - a) * self.compute_ema + a * compute_s
+        self.observations += 1
+        # ratio capped so a ~zero compute_s cannot overflow; the window is
+        # clamped to the configured cap anyway
+        ratio = self.wire_ema / max(self.compute_ema, 1e-6)
+        need = 1 + math.ceil(min(ratio, float(self.cap)))
+        self.window = max(self.floor, min(need, self.cap))
+        return self.window
+
+
+class _PipelinedFuture(Future):
+    """Future that pumps its runtime's channel inside ``result()`` /
+    ``exception()`` — with no reader thread, the waiter is the receiver."""
+
+    _rt: "PipelinedHostRuntime" = None
+
+    def result(self, timeout: float | None = None):
+        if not self.done() and self._rt is not None:
+            self._rt._pump_until(self.done, timeout)
+        return super().result(timeout=0)
+
+    def exception(self, timeout: float | None = None):
+        if not self.done() and self._rt is not None:
+            self._rt._pump_until(self.done, timeout)
+        return super().exception(timeout=0)
+
+
+class PipelinedHostRuntime(HostRuntime):
+    """HostRuntime that keeps up to ``max_in_flight`` requests in flight on
+    one channel.
+
+    Every request frame carries a unique id, so responses can be matched
+    out of order (e.g. from a coalescing destination).  While frame k
+    computes at the destination, frame k+1 is already serialized and sitting
+    in the connection's send buffer — the double-buffering that hides the
+    wire behind destination compute (paper Figs. 8-9's "Communication"
+    slice).
+
+    There is NO dedicated reader thread: responses are pumped by whichever
+    caller is blocked (on a full window in ``submit`` or on
+    ``Future.result`` via ``wait``), one designated receiver at a time.  A
+    reader-thread variant was measured to burn more in GIL handoffs per
+    response than the overlap recovered on fast links; the pump design has
+    zero extra thread switches in the steady single-caller case while still
+    supporting concurrent submitters/waiters.
+
+    Requires a channel with independent ``send``/``recv`` (TCP, loopback);
+    sync ops (``ping``/``put_model``/...) go through the same pipelined path
+    and simply wait on their own future.
+
+    ``max_in_flight`` is the window CAP.  With ``adaptive_window=True`` (the
+    default) the live window is sized from the observed comm/compute ratio
+    — see :class:`_WindowController` and the module docstring's stats table.
+    Over channels exposing the resumable-send API (``begin_send`` /
+    ``try_send_resume``, i.e. TCP), a request frame is written
+    non-blockingly: when the kernel send buffer fills, the submitter pumps
+    receives until the socket is writable again instead of blocking —
+    byte-level backpressure without a mutual stall on full socket buffers."""
+
+    def __init__(self, channel: Channel, codec: str = "raw",
+                 timeout: float | None = None, copy_results: bool = False,
+                 max_in_flight: int | None = None,
+                 adaptive_window: bool | None = None,
+                 throttle_retries: int | None = None) -> None:
+        super().__init__(channel, codec, timeout, copy_results,
+                         throttle_retries=throttle_retries)
+        cfg = global_config()
+        self.max_in_flight = int(cfg.resolve("max_in_flight", max_in_flight))
+        self.adaptive_window = bool(cfg.resolve("adaptive_window",
+                                                adaptive_window))
+        self._window = _WindowController(self.max_in_flight)  # guarded-by: _cv
+        self._pending: dict[int, Future] = {}            # guarded-by: _cv
+        self._track: dict[int, tuple[float, int]] = {}   # guarded-by: _cv (rid -> (t0, depth))
+        self._traces: dict[int, Any] = {}                # guarded-by: _cv (rid -> TraceRecord)
+        self._cv = _sanitize.make_condition("PipelinedHostRuntime._cv")
+        self._receiving = False                          # guarded-by: _cv
+        self._slock = _sanitize.make_lock("PipelinedHostRuntime._slock")
+        self._rid = itertools.count(1)
+        self._closed = False
+        self._broken: BaseException | None = None        # guarded-by: _cv
+        self._send_stalls = 0                            # guarded-by: _cv
+        self._sends_resumed = 0                          # guarded-by: _cv
+        self._recv_retries = 0                           # guarded-by: _cv
+        self._requests_completed = 0                     # guarded-by: _cv
+
+    # ------------------------------------------------------------------
+    def submit(self, meta: dict, tree=None, codec: str = "raw",
+               trace=None) -> Future:
+        """Send one request frame; returns a Future of (rmeta, rtree).
+        Blocks (pumping responses) only when the adaptive window's worth of
+        requests is already outstanding (request-level backpressure), or —
+        on a resumable-send channel — while the kernel send buffer is full
+        (byte-level backpressure), in which case the stalled send pumps
+        receives between attempts so the link can never deadlock on
+        mutually-full socket buffers.
+
+        Zero-copy contract: raw-codec leaves are sent as views over the
+        caller's arrays.  Over TCP the kernel copies during this call, but
+        over in-process channels (Loopback) the frame aliases the arrays
+        until the destination drains it — don't mutate submitted arrays
+        before their future resolves.
+
+        Platform note: byte-level backpressure needs per-call non-blocking
+        sends (``MSG_DONTWAIT``; see ``TCPChannel.supports_resumable_send``).
+        On platforms without it the legacy blocking send path is used, and
+        the old sizing rule applies: keep ``max_in_flight`` x request bytes
+        within the link's socket buffering or both ends can stall."""
+        if self._closed:
+            raise ChannelClosed("pipelined runtime closed")
+        rid = next(self._rid)
+        fut = self.make_future()
+        if trace is not None:
+            meta = {**meta, "trace": trace.trace_id}
+
+        def _admit() -> None:  # avecheck: ignore[lock] -- runs as on_pass under _pump_until's cv
+            # window check and pending insertion are one atomic step under
+            # the cv, or concurrent submitters could exceed the window; the
+            # (send time, queue depth) snapshot feeds the window controller
+            self._pending[rid] = fut
+            self._track[rid] = (time.monotonic(), len(self._pending))
+            if trace is not None:
+                self._traces[rid] = trace
+        self._pump_until(lambda: len(self._pending) < self._window.window,
+                         on_pass=_admit)
+        try:
+            t_ser = time.perf_counter()
+            req = pack_message(meta, tree, codec=codec, request_id=rid)
+            if trace is not None:
+                trace.add("serialize", time.perf_counter() - t_ser)
+            deadline = time.monotonic() + self.timeout
+            t_send = time.perf_counter()
+            with self._slock:
+                self._send_frame_pumping(req, deadline)
+            if trace is not None:
+                # includes backpressure stalls (pumped receives) — the
+                # honest cost of getting this frame onto the wire
+                trace.add("send", time.perf_counter() - t_send)
+            with self._cv:
+                self.bytes_sent += len(req)
+        except BaseException:
+            with self._cv:
+                self._pending.pop(rid, None)
+                self._track.pop(rid, None)
+                self._traces.pop(rid, None)
+                self._cv.notify_all()   # a window slot just freed: re-wake
+            raise                       # submitters parked on the predicate
+        return fut
+
+    # ------------------------------------------------------------------
+    def _send_frame_pumping(self, req, deadline: float) -> None:
+        """Write one request frame without ever blocking on a full socket
+        buffer while responses are undrained.
+
+        On channels exposing the resumable-send API the frame goes out via
+        non-blocking attempts; each would-block stall either drains one
+        response (as the designated receiver) or waits for writability while
+        another thread receives.  Channels whose ``send`` cannot block
+        mid-frame against the peer (loopback, simulated, direct) use the
+        plain blocking path.  Caller holds ``_slock`` (frames are atomic
+        wire units)."""
+        ch = self.channel
+        if not getattr(ch, "supports_resumable_send", False):
+            ch.send(req)
+            return
+        state = ch.begin_send(req)
+        try:
+            if ch.try_send_resume(state):
+                return
+            with self._cv:
+                self._sends_resumed += 1
+                self._send_stalls += 1
+            while True:
+                now = time.monotonic()
+                if now >= deadline:
+                    raise TimeoutError(
+                        "pipelined send timeout under backpressure "
+                        f"({state.sent}/{state.total}B written)")
+                became_receiver = False
+                with self._cv:
+                    if self._broken is not None:
+                        self._raise_broken()
+                    if not self._receiving:
+                        self._receiving = True
+                        became_receiver = True
+                if became_receiver:
+                    try:
+                        readable, _ = ch.wait_io(
+                            read=True, write=True,
+                            timeout=min(0.2, deadline - now))
+                    except BaseException as e:
+                        self._fail_pending(e)
+                        raise
+                    if readable:
+                        self._recv_dispatch_once()
+                    else:
+                        self._release_receiver()
+                else:
+                    # someone else is draining responses; sleep until the
+                    # kernel will take more bytes (or their dispatch wakes
+                    # the cv)
+                    ch.wait_io(read=False, write=True, timeout=0.05)
+                if ch.try_send_resume(state):
+                    return
+                with self._cv:
+                    self._send_stalls += 1
+        except BaseException:
+            # a partially-written frame left on the wire tears the framing
+            # for every later request: fail the channel (and all pending
+            # futures) rather than let the next send corrupt the stream
+            if state.sent and not state.done:
+                if hasattr(ch, "fail_partial_send"):
+                    ch.fail_partial_send(state)
+                self._fail_pending(ChannelClosed(
+                    "channel failed: frame abandoned mid-send "
+                    f"({state.sent}/{state.total}B written)"))
+            raise
+
+    def _raise_broken(self) -> None:
+        """Raise the stored channel-failure exception as a fresh clone of
+        the same type (see :func:`_clone_channel_exc` — the stored object
+        must never accumulate tracebacks)."""
+        raise _clone_channel_exc(self._broken)
+
+    def make_future(self) -> _PipelinedFuture:
+        """A Future whose ``result()`` pumps this runtime's channel.  Use for
+        futures chained off :meth:`submit` (e.g. result transformers) so
+        waiting on them drives the receive loop."""
+        fut = _PipelinedFuture()
+        fut._rt = self
+        return fut
+
+    def chain(self, inner: Future, transform) -> Future:
+        """Pump-aware future chaining: returns a Future resolving to
+        ``transform(rmeta, rtree)`` of ``inner``'s result, forwarding
+        exceptions; waiting on it drives the receive loop."""
+        outer = self.make_future()
+
+        def _done(f: Future) -> None:
+            exc = f.exception()
+            if exc is not None:
+                outer.set_exception(exc)
+                return
+            try:
+                outer.set_result(transform(*f.result()))
+            except BaseException as e:  # noqa: BLE001 — surface via future
+                outer.set_exception(e)
+
+        inner.add_done_callback(_done)
+        return outer
+
+    def wait(self, fut: Future, timeout: float | None = None) -> tuple[dict, Any]:
+        """Resolve a future from :meth:`submit`, pumping the channel."""
+        self._pump_until(fut.done, timeout)
+        return fut.result(timeout=0)
+
+    # ------------------------------------------------------------------
+    def _pump_until(self, pred, timeout: float | None = None,
+                    on_pass=None) -> None:
+        """Cooperative receive loop: exactly one thread receives at a time;
+        every receipt re-wakes the others to re-check their predicate.
+        ``on_pass`` runs under the cv in the same critical section as the
+        passing predicate check (atomic check-then-act).
+
+        The receiving thread's socket timeout is the RUNTIME timeout, never
+        the caller's (short) wait deadline — a short per-future timeout must
+        expire that one wait, not interrupt a response mid-frame and fail
+        the shared channel for every pending request.  Consequently a wait
+        may overshoot its deadline by up to one in-flight response.  A
+        CLEAN channel-level recv timeout (no frame byte seen; stream and
+        channel intact) is not the caller's failure: the pump retries until
+        the caller's own deadline expires (``recv_retries`` in stats)."""
+        timeout = self.timeout if timeout is None else timeout
+        deadline = time.monotonic() + timeout
+        while True:
+            with self._cv:
+                while True:
+                    if pred():
+                        if on_pass is not None:
+                            on_pass()
+                        return
+                    if self._broken is not None:
+                        self._raise_broken()
+                    if time.monotonic() >= deadline:
+                        raise TimeoutError("pipelined rpc timeout")
+                    if not self._receiving:
+                        self._receiving = True
+                        break
+                    if not self._cv.wait(timeout=deadline - time.monotonic()):
+                        raise TimeoutError("pipelined rpc timeout")
+            if not self._recv_dispatch_once():
+                # clean channel timeout: not this caller's failure unless
+                # its own deadline has passed
+                if time.monotonic() >= deadline:
+                    raise TimeoutError("pipelined rpc timeout")
+                with self._cv:
+                    self._recv_retries += 1
+
+    def _recv_dispatch_once(self) -> bool:
+        """As the designated receiver: one blocking recv + dispatch, then
+        release the receiver slot.  Returns False on a CLEAN channel recv
+        timeout (stream intact, receiver released, safe to retry).  Any
+        damage — a mid-frame timeout that broke the channel, a closed
+        socket, a garbled frame — fails every pending future and re-raises."""
+        try:
+            data = self.channel.recv(timeout=self.timeout)
+        except TimeoutError as e:
+            if getattr(self.channel, "broken", False):
+                # mid-frame timeout failed the channel: every pending
+                # response is lost, not just this caller's
+                exc = ChannelClosed(str(e))
+                self._fail_pending(exc)
+                raise exc
+            self._release_receiver()
+            return False
+        except BaseException as e:
+            self._fail_pending(e)
+            raise
+        try:
+            self._dispatch(data)    # avecheck: handoff
+        except BaseException as e:
+            self._fail_pending(e)
+            raise
+        self._release_receiver()
+        return True
+
+    def _release_receiver(self) -> None:
+        with self._cv:
+            self._receiving = False
+            self._cv.notify_all()
+
+    def _dispatch(self, data) -> None:
+        try:
+            self._dispatch_inner(data)
+        finally:
+            # future consumption: the raw frame is decoded (or dead) — drop
+            # the recv-pool lease's base ref; leaf views pin what they need
+            release_buffer(data)
+
+    def _dispatch_inner(self, data) -> None:
+        rid = frame_request_id(data)
+        now = time.monotonic()
+        with self._cv:
+            fut = self._pending.pop(rid, None)
+            track = self._track.pop(rid, None)
+            trace = self._traces.pop(rid, None)
+            # shared counters only mutate under the cv (readers of stats()
+            # and concurrent dispatchers must never race a lost update)
+            self.bytes_received += len(data)
+            if fut is not None:
+                self._requests_completed += 1
+        if fut is None:
+            return
+        try:
+            rmeta, rtree = unpack_message(data, copy=self.copy_results)
+        except Exception as e:  # noqa: BLE001
+            fut.set_exception(e)
+            return
+        if trace is not None:
+            # safe without the future's result: the caller only reads the
+            # trace after the future resolves (the future is the fence)
+            trace.merge(rmeta.get("spans"))
+        if (self.adaptive_window and track is not None
+                and rmeta.get("ok", False) and "compute_s" in rmeta):
+            t0, depth = track
+            compute_s = max(float(rmeta["compute_s"]), 0.0)
+            # wire time = round trip minus the destination-compute queueing
+            # attributable to the requests in flight ahead of (and incl.)
+            # this one — what's left is the link's share of the cycle
+            wire_s = max((now - t0) - depth * compute_s, 0.0)
+            with self._cv:
+                self._window.observe(wire_s, compute_s)
+        if not rmeta.get("ok", False):
+            fut.set_exception(_remote_exception(rmeta))
+        else:
+            fut.set_result((rmeta, rtree))
+
+    def _fail_pending(self, exc: BaseException) -> None:
+        with self._cv:
+            if self._broken is None:
+                # store a traceback-free clone: the original keeps
+                # propagating (and growing a traceback) through the failing
+                # callers, and this slot outlives all of their frames
+                self._broken = _clone_channel_exc(exc)
+            pending = list(self._pending.values())
+            self._pending.clear()
+            self._track.clear()
+            self._traces.clear()
+            self._receiving = False
+            self._cv.notify_all()
+        for fut in pending:
+            if not fut.done():
+                fut.set_exception(exc)
+
+    # ------------------------------------------------------------------
+    def _rpc(self, meta: dict, tree=None, codec: str = "raw",
+             trace=None) -> tuple[dict, Any]:
+        return self.wait(self.submit(meta, tree, codec=codec, trace=trace))
+
+    def run_async(self, fp: str, fn: str, args, batchable: bool = False, *,
+                  tenant: str | None = None, qos: dict | None = None,
+                  call_id: str | None = None, trace=None) -> Future:
+        """Async ``run``: a Future resolving to (rmeta, output tree).
+        Resolve it with :meth:`wait` (or ``.result()`` after another call on
+        this runtime has pumped the channel).  One wire attempt — a
+        :class:`TenantThrottled` response surfaces on the future; the
+        synchronous :meth:`run` wrapper (and the serving frontends) own the
+        jittered retry loop."""
+        args_np = to_numpy_tree(args)
+        codec = self.codec
+        inner = self.submit(
+            self._run_meta(fp, fn, batchable, tenant, qos, call_id,
+                           codec=codec),
+            args_np, codec=codec, trace=trace)
+
+        def _record(f: Future) -> None:
+            if f.exception() is None:
+                self.last_compute_s = f.result()[0]["compute_s"]
+        inner.add_done_callback(_record)
+        return inner
+
+    def run(self, fp: str, fn: str, args, batchable: bool = False, *,
+            tenant: str | None = None, qos: dict | None = None,
+            call_id: str | None = None, trace=None) -> Any:
+        attempt = 0
+        while True:
+            try:
+                return self.wait(self.run_async(
+                    fp, fn, args, batchable=batchable,
+                    tenant=tenant, qos=qos, call_id=call_id,
+                    trace=trace))[1]
+            except TenantThrottled as e:
+                if attempt >= self.throttle_retries:
+                    raise
+                with self._cv:
+                    self.throttle_retried += 1
+                time.sleep(_throttle_backoff(attempt, e.retry_after_s))
+                attempt += 1
+
+    def in_flight(self) -> int:
+        with self._cv:
+            return len(self._pending)
+
+    @property
+    def window(self) -> int:
+        """The live in-flight window (adaptive; capped at max_in_flight)."""
+        with self._cv:
+            return self._window.window
+
+    def stats(self) -> dict:
+        """Snapshot of the data-plane counters (see module docstring).
+        Includes the channel's recv-pool counters (hit rate, outstanding
+        leases) under ``recv_pool`` when the transport pools its receive
+        buffers."""
+        pool = getattr(self.channel, "recv_pool", None)
+        pool_stats = pool.stats() if pool is not None else None
+        with self._cv:
+            return {
+                **({"recv_pool": pool_stats} if pool_stats else {}),
+                "bytes_sent": self.bytes_sent,
+                "bytes_received": self.bytes_received,
+                "in_flight": len(self._pending),
+                "window": self._window.window,
+                "max_in_flight": self.max_in_flight,
+                "adaptive_window": self.adaptive_window,
+                "send_stalls": self._send_stalls,
+                "sends_resumed": self._sends_resumed,
+                "recv_retries": self._recv_retries,
+                "throttle_retried": self.throttle_retried,
+                "requests_completed": self._requests_completed,
+                "wire_ema_s": self._window.wire_ema,
+                "compute_ema_s": self._window.compute_ema,
+                "window_observations": self._window.observations,
+            }
+
+    def close(self) -> None:
+        self._closed = True
+        self.channel.close()
+        self._fail_pending(ChannelClosed("pipelined runtime closed"))

@@ -1,17 +1,18 @@
-"""Executor library adapters: expose the port's model zoo as
-destination-executable libraries (the "Caffe" of this reproduction).
+"""Executor library adapters: expose the port's model zoo and OpenPose-lite
+as destination-executable libraries (the "Caffe" of this reproduction).
 
 Library functions have signature ``fn(params, state, args) -> outputs`` where
 ``state`` is the mutable per-session dict (serving caches live there, which
 is what migration snapshots: a dense model's KV cache or a mamba2 model's
 conv windows and SSM states, both plain tensor trees).  Arguments arrive as tensors on the
 executor's device (the parameters' device); outputs are tensors the executor
-brings back to host numpy.  The OpenPose-lite library is not ported yet."""
+brings back to host numpy."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.models import model as M
+from repro_torch.models import openpose
 from repro_torch.utils import resolve_device
 
 
@@ -49,3 +50,18 @@ def make_model_library(cfg, max_cache_len: int = 256, device="cuda") -> dict:
         return {"hidden": h}
 
     return {"score": score, "prefill": prefill, "decode": decode, "hidden": hidden}
+
+
+def make_openpose_library(net, device="cuda") -> dict:
+    """The paper's workload: the Caffe backbone as a destination library.
+    ``forward`` takes NHWC ``frames`` on the executor's device and returns
+    NHWC ``beliefs``; the weights stay HWIO as they crossed the wire."""
+    resolve_device(device)      # the entry point's device rule: no quiet CPU fallback
+
+    @torch.inference_mode()
+    def forward(params, state, args):
+        # the private name: an application in this process may have
+        # ``op_forward`` intercepted, and the destination runs the backbone
+        return {"beliefs": openpose._op_forward(net, params, args["frames"])}
+
+    return {"forward": forward}

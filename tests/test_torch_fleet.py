@@ -2,10 +2,13 @@
 destination (on the CPU) and gets what a JAX-package destination returns; a
 port snapshot restores into a JAX-package destination; a port host drives a
 JAX-package destination.  The same for reduced mamba2-130m, whose session
-state is a conv window and an SSM state instead of a KV cache.
+state is a conv window and an SSM state instead of a KV cache.  Then
+OpenPose-lite, the paper's workload: JAX-package hosts, synchronous and
+pipelined, drive a port destination; the port's pipelined host drives
+JAX-package destinations; both packages' sessions agree on the fingerprint.
 
 Tolerance 1e-4 on float32 logits and loss (the reference's own
-cache-consistency bound is 2e-3)."""
+cache-consistency bound is 2e-3); OpenPose beliefs within 1e-5·max|ref|."""
 import jax
 import numpy as np
 import pytest
@@ -14,15 +17,22 @@ import torch
 from repro.configs import get_arch, reduced
 from repro.core.executor import DestinationExecutor as RefDest
 from repro.core.executor import HostRuntime as RefHost
+from repro.core.executor import PipelinedHostRuntime as RefPipelined
+from repro.core.interception import AvecSession as RefSession
 from repro.core.library import make_model_library as ref_library
+from repro.core.library import make_openpose_library as ref_openpose_library
 from repro.core.transport import TCPChannel as RefChannel
 from repro.core.transport import TCPServer as RefServer
 from repro.models import model as RM
+from repro.models import openpose as ROP
+from repro.models.params import init_params as ref_init_params
 from repro_torch import configs as tconfigs
 from repro_torch.core.cache import model_fingerprint
-from repro_torch.core.executor import DestinationExecutor, HostRuntime
-from repro_torch.core.library import make_model_library
+from repro_torch.core.executor import DestinationExecutor, HostRuntime, PipelinedHostRuntime
+from repro_torch.core.interception import AvecSession
+from repro_torch.core.library import make_model_library, make_openpose_library
 from repro_torch.core.transport import TCPChannel, TCPServer
+from repro_torch.models import openpose as TOP
 from repro_torch.models.params import from_numpy_tree
 
 ARCH = "granite-3-2b"
@@ -243,3 +253,90 @@ def test_mamba_snapshot_restores_across_packages(mamba_setup, direction):
     finally:
         port.close()
         ref.close()
+
+
+# ---------------------------------------------------------------------------
+# OpenPose-lite, the paper's workload, and the pipelined runtimes
+# (beliefs within 1e-5·max|ref|: float32 convolutions in another order)
+# ---------------------------------------------------------------------------
+
+OP_TOL = 1e-5
+
+
+@pytest.fixture(scope="module")
+def openpose_setup():
+    net = ROP.OpenPoseLite()
+    params = jax.tree_util.tree_map(
+        np.asarray, ref_init_params(ROP.op_param_specs(net), jax.random.PRNGKey(4), jax.numpy.float32))
+    fp = model_fingerprint(TOP.OpenPoseLite(), params)
+    frames = [np.asarray(ROP.make_frames(1, 368, 656, seed=5)),
+              np.asarray(ROP.make_frames(2, 45, 77, seed=6))]
+    return net, params, fp, frames
+
+
+def _op_ref_dest(net):
+    return RefDest({"openpose": ref_openpose_library(net)}, name="jax-op")
+
+
+def _op_port_dest():
+    return DestinationExecutor({"openpose": make_openpose_library(TOP.OpenPoseLite(), device="cpu")},
+                               name="torch-op", device="cpu")
+
+
+def _forward_all(host, fp, params, frames, pipelined):
+    host.put_model(fp, "openpose", params)
+    if pipelined:
+        futs = [host.run_async(fp, "forward", {"frames": f}) for f in frames]
+        return [np.array(host.wait(f, timeout=120)[1]["beliefs"]) for f in futs]
+    return [np.array(host.run(fp, "forward", {"frames": f})["beliefs"]) for f in frames]
+
+
+@pytest.mark.parametrize("host_cls", [RefHost, RefPipelined], ids=["sync", "pipelined"])
+def test_reference_host_drives_port_openpose_destination(openpose_setup, host_cls):
+    net, params, fp, frames = openpose_setup
+    ref = _Node(_op_ref_dest(net), RefServer, RefHost, RefChannel)
+    port = _Node(_op_port_dest(), TCPServer, host_cls, RefChannel)
+    try:
+        want = _forward_all(ref.host, fp, params, frames, pipelined=False)
+        got = _forward_all(port.host, fp, params, frames, pipelined=host_cls is RefPipelined)
+        assert port.host.has_model(fp)
+        for a, b in zip(got, want):
+            assert a.shape == b.shape and a.dtype == b.dtype == np.float32
+            assert np.abs(a - b).max() <= OP_TOL * np.abs(b).max()
+    finally:
+        ref.close()
+        port.close()
+
+
+def test_port_pipelined_host_drives_reference_destinations(setup, openpose_setup):
+    """The port's pipelined runtime against a JAX-package destination: the
+    dense LM (prefill, decodes, score) and OpenPose-lite."""
+    cfg, tcfg, params, fp, toks = setup
+    ref = _Node(_ref_dest(cfg), RefServer, PipelinedHostRuntime, TCPChannel)
+    net, op_params, op_fp, frames = openpose_setup
+    op_ref = _Node(_op_ref_dest(net), RefServer, PipelinedHostRuntime, TCPChannel)
+    sync = _Node(_ref_dest(cfg), RefServer, RefHost, RefChannel)
+    try:
+        got = _drive(ref.host, fp, params, toks)
+        want = _drive(sync.host, fp, params, toks)
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a, b)              # the same destination code
+        beliefs = _forward_all(op_ref.host, op_fp, from_numpy_tree(op_params, "cpu"), frames,
+                               pipelined=True)
+        for f, a in zip(frames, beliefs):
+            b = np.asarray(ROP.op_forward(net, op_params, f))
+            assert np.abs(a - b).max() <= OP_TOL * np.abs(b).max()
+        s = op_ref.host.stats()
+        assert s["requests_completed"] == 1 + len(frames) and s["in_flight"] == 0
+    finally:
+        ref.close()
+        op_ref.close()
+        sync.close()
+
+
+def test_sessions_agree_on_the_openpose_fingerprint(openpose_setup):
+    net, params, fp, _ = openpose_setup
+    ref = RefSession(net, params, None, "openpose")
+    port = AvecSession(TOP.OpenPoseLite(), params, None, "openpose")
+    port_t = AvecSession(TOP.OpenPoseLite(), from_numpy_tree(params, "cpu"), None, "openpose")
+    assert ref.fp == port.fp == port_t.fp == fp
