@@ -17,8 +17,9 @@ Phases (any failed check exits non-zero):
    B 1 S 4096, ragged S, G > 1, P 48 N 96; CUDA cores: fp32, N 16, ragged
    L), each case checked to take its branch and called twice for
    bit-identical output; flash
-   attention also at the training shape (B 8, S 256) and a 1000-token ragged
-   prompt at head dim 128, decode attention also at B 8, a 4096-slot cache,
+   attention also at the training shape (B 8, S 256), a 1000-token ragged
+   prompt at head dim 128 and phase 9's shapes (the engine's B 1 prefills at
+   each of its prompt lengths, the sharded call's B 4 and B 8), decode attention also at B 8, a 4096-slot cache,
    kv_len on a split boundary and one past it, G 1 and 8, each attention
    kernel called twice for bit-identical output; time kernel, plain version
    and the PyTorch yardstick (``F.rms_norm``,
@@ -81,7 +82,29 @@ Phases (any failed check exits non-zero):
    batch, B 64, twice (cold and warm, bit-identical; frame 0 against its B 1
    forward).  Prints ``compute_s``, ``wire_s``, the bytes per cycle against
    Eq. 1 and peak device memory; no kernel of the six is launched (cuDNN
-   convolutions) (``--profile``: the B 1 and B 64 forwards traced).
+   convolutions) (``--profile``: the B 1 and B 64 forwards traced);
+9. the front door at granite-3-2b's full width: two port destinations on
+   the card, "edge" behind ``TCPServer`` and ``SharedMemoryServer``, "cloud"
+   behind ``TCPServer`` only, reached through ``repro_torch.avec.connect``
+   (both handshakes give ``PipelinedHostRuntime``; edge is re-dialed over
+   shared memory).  A tenant's session sends the weights once and repeats
+   phase 5's calls, each output bit-identical to phase 5's, with phase 5's
+   launch counts; the same prefill on the other destination (TCP against
+   SHM ``wire_s``, ``put_model`` over each, SHM spills); ``hidden`` (B 8)
+   sharded over both and stitched (within 5 % of the unsharded call); a
+   ``map`` of 4 scores over both, each bit-identical to a direct call on the
+   destination its ``served_by`` record names.  Then ``ServingEngine`` (4 slots, fp32
+   cache) serves 8 requests of 16 tokens with prompts of 5–67 tokens on the
+   card: exact launch counts (flash per prefill, decode per step), each
+   token within the bf16 tolerance of a teacher-forced plain forward's
+   argmax, near-ties counted; then a held run of 5 requests of unequal
+   lengths (emptied slots decode at stale positions, one request spliced
+   into a freed slot), every decode launch against its plain version on the
+   same inputs and each tick's logits against a plain decode step on the
+   same cache (``--profile``: one 4-slot tick traced).  Last,
+   ``python -m repro_torch.launch.serve`` in its three roles as processes of
+   their own (destination over TCP and SHM, stopped by SIGINT under
+   ``--drain``; host; local), each exiting 0.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -110,6 +133,26 @@ SSM_S = 1024                          # mamba2-130m prompt: four chunks of 256
 # mamba2-130m's scan: (B, S, H, P, G, N, chunk)
 SSD_MAIN = (MAIN_B, SSM_S, 24, 64, 1, 128, 256)
 OP_FRAMES, OP_STREAM, OP_WINDOW = 4, 8, 2     # phase 8: the loop, the stream, the window
+# phase 9: the engine's slots, cache, requests, tokens each and prompt lengths;
+# the sharded hidden call's rows; the map's requests
+ENGINE_B, ENGINE_LEN, ENGINE_REQS, ENGINE_NEW, ENGINE_PROMPT = 4, 256, 8, 16, (5, 67)
+# the held decode run after it: tokens per request, unequal so that slots empty
+# and decode at their stale positions, and one request admitted into a freed slot
+ENGINE_CHECK_NEW = (3, 6, 9, 12, 4)
+HIDDEN_B, MAP_REQS = 8, 4
+
+
+def engine_prompts(seed: int, vocab: int) -> dict:
+    """Phase 9d's prompts, drawn from ``seed``: a warm-up pair, the run's
+    requests, the held decode run's and the profiled tick's, each a list of
+    token lists of ENGINE_PROMPT's lengths.  Phase 3 holds flash at every
+    one of these lengths."""
+    gen = np.random.default_rng(seed + 9)
+    lo, hi = ENGINE_PROMPT
+    return {tag: [gen.integers(0, vocab, int(gen.integers(lo, hi + 1))).tolist()
+                  for _ in range(n)]
+            for tag, n in (("w", 2), ("r", ENGINE_REQS), ("c", len(ENGINE_CHECK_NEW)),
+                           ("p", ENGINE_B))}
 
 
 class CheckFailed(AssertionError):
@@ -186,8 +229,9 @@ def sdpa_gqa(q, k, v, **kw):
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def kernel_checks(gen, dev) -> dict:
-    """-> each kernel's max abs error at the main path's shapes."""
+def kernel_checks(gen, dev, engine_lens) -> dict:
+    """-> each kernel's max abs error at the main path's shapes.
+    ``engine_lens``: phase 9d's prompt lengths, each prefilled at B 1."""
     from repro_torch.kernels import ops
 
     def randn(*shape, dtype=torch.float32):
@@ -226,7 +270,14 @@ def kernel_checks(gen, dev) -> dict:
     # flash: atol 2e-5 in f32, 2e-2 in bf16 (test_kernels.py); bf16 runs the
     # tensor-core kernel, f32 the CUDA-core one.  Serving and training shapes,
     # a long ragged prompt, head dims 16 and 128, Sq != Sk (the causal
-    # diagonal of packed query heads), non-causal; two calls bit-identical
+    # diagonal of packed query heads), non-causal; then phase 9's shapes: the
+    # engine's B 1 prefills at each of its prompt lengths and at lengths on
+    # and around the 64-row tile (16 positions of G 4), and the sharded
+    # hidden call's whole and per-shard rows; two calls bit-identical
+    engine_cases = [((1, 32, 8, S, S, 64), bf16, True)
+                    for S in sorted(set(engine_lens) | {5, 15, 16, 17, 37, 63, 64, 65, 67})]
+    hidden_cases = [((B, 32, 8, MAIN_S, MAIN_S, 64), bf16, True)
+                    for B in (HIDDEN_B // 2, HIDDEN_B)]
     for (B, H, K, Sq, Sk, D), dt, causal in [
             ((MAIN_B, 32, 8, MAIN_S, MAIN_S, 64), bf16, True),
             ((MAIN_B, 32, 8, MAIN_S, MAIN_S, 64), f32, True),
@@ -238,7 +289,8 @@ def kernel_checks(gen, dev) -> dict:
             ((2, 4, 2, 77, 77, 64), f32, True), ((2, 4, 2, 77, 77, 64), bf16, True),
             ((1, 4, 2, 37, 53, 64), f32, False), ((1, 4, 2, 37, 53, 64), bf16, True),
             ((1, 4, 2, 37, 53, 64), bf16, False), ((1, 4, 1, 19, 45, 16), bf16, True),
-            ((1, 4, 1, 19, 45, 16), f32, True), ((1, 6, 2, 50, 70, 128), bf16, True)]:
+            ((1, 4, 1, 19, 45, 16), f32, True), ((1, 6, 2, 50, 70, 128), bf16, True),
+            *engine_cases, *hidden_cases]:
         q, k, v = randn(B, Sq, H, D, dtype=dt), randn(B, Sk, K, D, dtype=dt), randn(B, Sk, K, D, dtype=dt)
         got = ops.flash_attention(q, k, v, causal=causal)
         again = ops.flash_attention(q, k, v, causal=causal)
@@ -261,7 +313,8 @@ def kernel_checks(gen, dev) -> dict:
                                       ((3, 2, 8, 40, 16), f32, f32),
                                       ((1, 4, 1, 128, 128), f32, f32),
                                       ((2, 2, 4, 100, 128), bf16, bf16),
-                                      ((2, 2, 2, 64, 16), f32, bf16)]:
+                                      ((2, 2, 2, 64, 16), f32, bf16),
+                                      ((ENGINE_B, 8, 4, ENGINE_LEN, 64), bf16, f32)]:
         q = randn(B, 1, K * G, D, dtype=qdt)
         kc, vc = randn(B, S, K, D, dtype=kdt), randn(B, S, K, D, dtype=kdt)
         for lens in (torch.randint(1, S + 1, (B,), generator=gen, device=dev),
@@ -930,7 +983,10 @@ def expected_counts(cfg) -> dict:
             "ssd_scan_tc": 0, "ssd_scan_simt": 0}
 
 
-def main_path(phase: str, arch: str, seq: int, seed: int, dev, profile: bool = False) -> dict:
+def main_path(phase: str, arch: str, seq: int, seed: int, dev,
+              profile: bool = False) -> tuple[dict, dict]:
+    """-> (launch counts, outputs: the prefill and decode logits and the
+    score loss, which phase 9 holds the facade's calls to)."""
     from repro_torch.configs import get_arch
     from repro_torch.core.cache import model_fingerprint
     from repro_torch.core.executor import DestinationExecutor, HostRuntime
@@ -1022,7 +1078,7 @@ def main_path(phase: str, arch: str, seq: int, seed: int, dev, profile: bool = F
                 entry["params"], entry["state"], {"tokens": toks}))
             profile_call(f"{arch} decode", lambda: lib["decode"](
                 entry["params"], entry["state"], {"tokens": toks[:, :1]}))
-        return counts
+        return counts, {"logits": logits, "loss": loss}
     finally:
         host.close()
         server.stop()
@@ -1359,6 +1415,467 @@ def openpose_path(seed: int, dev, profile: bool = False) -> dict:
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the front door — avec.connect, SHM, sharding, the engine, launch/serve
+# ---------------------------------------------------------------------------
+
+def add_counts(total: dict, counts: dict) -> dict:
+    for name, n in counts.items():
+        total[name] = total.get(name, 0) + n
+    return total
+
+
+def host_float(x) -> torch.Tensor:
+    """A host leaf (bf16 included) as an fp32 CPU tensor."""
+    from repro_torch.utils import to_tensor
+    return to_tensor(x, "cpu").float()
+
+
+def facade_calls(sess, tokens, n_decode: int) -> tuple[list, float, list]:
+    """Phase 5's calls through a facade session: prefill, ``n_decode``
+    greedy decodes, score -> (logits, loss, [(fn, compute_s, wire_s)])."""
+    cycles = []
+
+    def call(fn, args):
+        out = sess.call(fn, args)
+        c = sess.profiler.cycles[-1]
+        cycles.append((fn, c.gpu_s, c.comm_s))
+        return out
+
+    logits = [np.array(call("prefill", {"tokens": tokens})["logits"])]
+    for _ in range(n_decode):
+        nxt = logits[-1][:, -1].argmax(-1).astype(np.int32)[:, None]
+        logits.append(np.array(call("decode", {"tokens": nxt})["logits"]))
+    targets = np.concatenate([tokens[:, 1:], tokens[:, :1]], axis=1)
+    loss = float(np.asarray(call("score", {"tokens": tokens, "targets": targets})["loss"]))
+    return logits, loss, cycles
+
+
+def put_model_line(sess, label: str) -> str:
+    """Send the session's weights once (timed) -> a printable line with the
+    bytes on the wire and, over SHM, the ring's spill count."""
+    rt = sess.runtime
+    sent0 = rt.bytes_sent
+    stats0 = rt.channel.stats() if hasattr(rt.channel, "stats") else None
+    t0 = time.perf_counter()
+    check(not sess.ensure_model(), f"{label}: ensure_model sent the weights")
+    wall = time.perf_counter() - t0
+    line = (f"  put_model to {label} over {type(rt.channel).__name__}: "
+            f"{(rt.bytes_sent - sent0) / 1e9:.3f} GB on the wire, {wall:.3f} s wall")
+    if stats0 is not None:
+        stats = rt.channel.stats()
+        line += (f"; ring {stats['ring_bytes'] / 2**20:.0f} MiB, spills sent "
+                 f"{stats['spills_sent'] - stats0['spills_sent']}, frames through the ring "
+                 f"{stats['frames_sent'] - stats0['frames_sent']}")
+    return line
+
+
+def engine_checks(cfg, params, reqs, dev) -> int:
+    """Each generated token against one teacher-forced forward of prompt +
+    generated[:-1] through the plain versions: the token's plain logit is
+    within the bf16 tolerance (5 % of the position's max |logit|) of the
+    plain argmax's.  -> the count of near-ties (token != plain argmax)."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+
+    V = cfg.vocab_size
+    near = worst = 0
+    with torch.inference_mode(), ops.force_impl("ref"):
+        for r in reqs:
+            seq = torch.tensor([r.prompt + r.generated[:-1]], dtype=torch.int32, device=dev)
+            h, _ = M.forward_hidden(cfg, params, {"tokens": seq})
+            lg = M.logits_from_hidden(cfg, params, h[:, len(r.prompt) - 1:])[0, :, :V].float()
+            mine = lg.gather(-1, torch.tensor(r.generated, device=dev)[:, None])[:, 0]
+            gap = lg.amax(-1) - mine
+            tol = 0.05 * lg.abs().amax(-1)
+            check(bool((gap <= tol).all()),
+                  f"request {r.rid} (prompt {len(r.prompt)}): every token within the bf16 "
+                  f"tolerance of the plain argmax (largest gap {gap.max().item():.4f}, "
+                  f"tolerance {tol.min().item():.4f})")
+            near += int((gap > 0).sum())
+            worst = max(worst, gap.max().item())
+    print(f"  engine tokens against the plain teacher-forced forwards: {near} near-ties "
+          f"of {sum(len(r.generated) for r in reqs)} tokens (largest gap {worst:.4f})",
+          flush=True)
+    return near
+
+
+def engine_decode_checks(eng, reqs) -> None:
+    """The engine's decode held at its own inputs.  ``reqs`` ask for unequal
+    token counts, so rows sit at unequal positions, emptied slots decode at
+    their stale positions and a queued request is spliced into a freed
+    slot.  At every tick: each ``decode_attention`` launch against its plain
+    version on the same q, fp32 cache and per-row kv_len (phase 3's bf16
+    tolerance, 2e-2; two calls bit-identical), and the tick's logits
+    against ``M.decode_step`` through the plain versions on a copy of the
+    same cache (phase 5's bf16 tolerance, 5 % of max |logit|)."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.utils import tree_map
+
+    cfg, V = eng.cfg, eng.cfg.vocab_size
+    held = {"on": False, "calls": 0, "err": 0.0, "same": True}
+    ticks = []
+    attn, decode = ops.decode_attention, eng._decode
+
+    def attn_held(q, k, v, kv_len, *, impl=None):
+        out = attn(q, k, v, kv_len, impl=impl)
+        if held["on"]:
+            again = attn(q, k, v, kv_len)
+            want = attn(q, k, v, kv_len, impl="ref")
+            held["calls"] += 1
+            held["err"] = max(held["err"], max_err(out, want))
+            held["same"] &= torch.equal(out, again)
+        return out
+
+    def decode_held(params, cache, tokens, pos):
+        copy = tree_map(torch.clone, cache)
+        active = [r is not None for r in eng.slots]
+        held["on"] = True
+        try:
+            logits, cache = decode(params, cache, tokens, pos)
+        finally:
+            held["on"] = False
+        with torch.inference_mode(), ops.force_impl("ref"):
+            plain = M.decode_step(cfg, params, copy, {"tokens": tokens, "pos": pos})[0]
+        lg, pl = logits[:, 0, :V].float(), plain[:, 0, :V].float()
+        rows = [i for i, a in enumerate(active) if a]
+        agree = bool((lg[rows].argmax(-1) == pl[rows].argmax(-1)).all())
+        ticks.append((pos.tolist(), active, max_err(lg, pl), pl.abs().max().item(), agree))
+        return logits, cache
+
+    for r in reqs:
+        eng.submit(r)
+    ops.decode_attention, eng._decode = attn_held, decode_held
+    try:
+        eng.run()
+    finally:
+        ops.decode_attention = attn
+        del eng._decode
+    check(all(len(r.generated) == r.max_new_tokens for r in reqs),
+          f"held decode run: {len(reqs)} requests of {[r.max_new_tokens for r in reqs]} tokens "
+          f"in {len(ticks)} ticks")
+    stale = sum(not all(a) for _, a, *_ in ticks)
+    check(stale > 0 and all(len(set(p)) > 1 for p, *_ in ticks),
+          f"every tick at unequal per-row positions, {stale} ticks with an emptied slot "
+          f"decoding at its stale position (positions {[p for p, *_ in ticks]})")
+    check(held["calls"] == cfg.num_layers * len(ticks) and held["err"] <= 2e-2 and held["same"],
+          f"every decode_attention launch of the held run ({held['calls']}) against the plain "
+          f"version on the same inputs: max abs err {held['err']:.3e}, two calls bit-identical")
+    worst = max(e / s for _, _, e, s, _ in ticks)
+    check(worst <= 0.05, f"every tick's logits against M.decode_step through the plain versions "
+          f"on the same cache: largest err {100 * worst:.2f}% of max |logit| (bf16 tolerance 5%)")
+    print(f"  held decode run: argmax of the active rows equal to the plain decode's at "
+          f"{sum(t[4] for t in ticks)} of {len(ticks)} ticks", flush=True)
+
+
+class Lines:
+    """A subprocess's output read line by line on a thread of its own, so a
+    pipe never fills and a wait never blocks on a partial read."""
+
+    def __init__(self, stream) -> None:
+        import queue
+        import threading
+
+        self.lines: list = []
+        self._q = queue.Queue()
+        self._t = threading.Thread(target=self._read, args=(stream,), daemon=True)
+        self._t.start()
+
+    def _read(self, stream) -> None:
+        for line in stream:
+            self.lines.append(line.rstrip("\n"))
+            self._q.put(line)
+        self._q.put(None)
+
+    def wait_for(self, event: str, timeout: float) -> dict:
+        """The first JSON line whose ``event`` is ``event``."""
+        import queue
+
+        deadline = time.monotonic() + timeout
+        while True:
+            try:
+                line = self._q.get(timeout=max(deadline - time.monotonic(), 0.01))
+            except queue.Empty:
+                line = None
+            if line is None:
+                raise CheckFailed(f"no {event!r} line within {timeout:.0f} s; read "
+                                  f"{self.lines}")
+            rec = events(line).get(event)
+            if rec is not None:
+                return rec
+
+    def text(self) -> str:
+        self._t.join(timeout=30)
+        return "\n".join(self.lines)
+
+
+def events(stdout: str) -> dict:
+    """The JSON event lines of a finished subprocess, by event name (the
+    last of each)."""
+    out = {}
+    for line in stdout.splitlines():
+        try:
+            rec = json.loads(line)
+        except json.JSONDecodeError:
+            continue
+        if isinstance(rec, dict) and "event" in rec:
+            out[rec["event"]] = rec
+    return out
+
+
+def serve_roles() -> None:
+    """9e: ``python -m repro_torch.launch.serve`` in its three roles, each a
+    process of its own on the card at the reduced size."""
+    import os
+    import signal
+
+    root = Path(__file__).resolve().parent
+    env = {**os.environ, "PYTHONPATH": str(root / "src")}
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve"]
+    t0 = time.perf_counter()
+    dest = subprocess.Popen(cmd + ["--role", "destination", "--transport", "both", "--drain",
+                                   "--port", "0"], cwd=root, env=env, text=True,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+    out, err = Lines(dest.stdout), Lines(dest.stderr)
+    try:
+        rec = out.wait_for("destination_listening", 300)
+        check(rec["transport"] == "both" and rec["port"] > 0,
+              f"destination role listening on TCP port {rec['port']} with the SHM doorbell")
+        host = subprocess.run(cmd + ["--role", "host", "--connect", f"127.0.0.1:{rec['port']}",
+                                     "--requests", "8"], cwd=root, env=env, text=True,
+                              capture_output=True, timeout=300)
+        check(host.returncode == 0, f"host role exits 0 (rc {host.returncode}; "
+              f"stderr tail {host.stderr[-2000:]!r})")
+        ev = events(host.stdout)
+        hs, done = ev.get("handshake", {}), ev.get("offload_complete", {})
+        check(hs.get("runtime") == "PipelinedHostRuntime",
+              f"host role: handshake negotiated {hs.get('runtime')}")
+        check(done.get("requests") == 8 and sum(done.get("assigned", {}).values()) == 8,
+              f"host role: offload_complete, 8 requests at {done.get('req_per_s', 0):.1f} req/s")
+        dest.send_signal(signal.SIGINT)
+        dest.wait(timeout=120)
+        ev = events(out.text())
+        check(dest.returncode == 0 and "drain_end" in ev,
+              f"destination role drained on SIGINT and exits 0 (rc {dest.returncode}, "
+              f"drain_end {ev.get('drain_end')}; stderr tail {err.text()[-2000:]!r})")
+    finally:
+        if dest.poll() is None:
+            dest.kill()
+            dest.wait()
+    local = subprocess.run(cmd + ["--role", "local", "--requests", "8"], cwd=root, env=env,
+                           text=True, capture_output=True, timeout=300)
+    ev = events(local.stdout).get("engine_complete", {})
+    check(local.returncode == 0 and ev.get("tokens") == 8 * 16,
+          f"local role exits 0: engine_complete, {ev.get('tokens')} tokens in "
+          f"{ev.get('engine_ticks')} ticks, {ev.get('tok_per_s', 0):.1f} tokens/s "
+          f"(rc {local.returncode}; stderr tail {local.stderr[-2000:]!r})")
+    print(f"  9e: three roles in {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def frontdoor_path(seed: int, dev, served: dict, profile: bool = False) -> dict:
+    """Phase 9: granite-3-2b at full width through the front door, then
+    continuous batching on the card, then the serving entry point."""
+    from repro_torch import avec
+    from repro_torch.configs import get_arch
+    from repro_torch.core.executor import DestinationExecutor, PipelinedHostRuntime
+    from repro_torch.core.library import make_model_library
+    from repro_torch.core.shm import SharedMemoryChannel, SharedMemoryServer
+    from repro_torch.core.transport import TCPChannel, TCPServer
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.obs.config import global_config
+    from repro_torch.serving.engine import Request, ServingEngine
+    from repro_torch.utils import to_numpy_tree
+
+    cfg = get_arch("granite-3-2b")
+    L, V = cfg.num_layers, cfg.vocab_size
+    print(f"phase 9: the front door, {cfg.name} at full width ({L} layers, d_model "
+          f"{cfg.d_model}), avec.connect to two destinations (edge: TCP + SHM, cloud: TCP)",
+          flush=True)
+    total: dict = {}
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(0, V, (MAIN_B, MAIN_S)).astype(np.int32)     # phase 5's prompt
+
+    # 9a: two destinations as launch/serve --role destination builds them
+    execs, servers = [], []
+    client = None
+    try:
+        for name, shm in (("edge", True), ("cloud", False)):
+            ex = DestinationExecutor({"lm": make_model_library(cfg, CACHE_LEN, device=dev)},
+                                     name=name, device=dev)
+            execs.append(ex)
+            servers.append(TCPServer(ex.handle).start())
+            if shm:
+                servers.append(SharedMemoryServer(ex.handle).start())
+                ex.shm_address = servers[-1].address
+        tcp_ports = [s.port for s in servers if isinstance(s, TCPServer)]
+        client = avec.connect([f"tcp://127.0.0.1:{p}" for p in tcp_ports], timeout=900.0,
+                              shadow_every=0)
+        edge, cloud = client.destinations
+        check(all(isinstance(client.runtime(n), PipelinedHostRuntime) for n in (edge, cloud)),
+              "handshake: PipelinedHostRuntime on both destinations")
+        check(isinstance(client.runtime(edge).channel, SharedMemoryChannel)
+              and isinstance(client.runtime(cloud).channel, TCPChannel),
+              f"edge re-dialed onto SharedMemoryChannel (same-host upgrade), cloud stayed on "
+              f"TCPChannel")
+
+        # 9b: phase 5's calls through a facade session
+        t0 = time.perf_counter()
+        params_host = to_numpy_tree(M.init_params(cfg, seed, device=dev))
+        torch.cuda.empty_cache()
+        print(f"  weights made on the card and brought to the host in "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+        sess = client.session(cfg, params_host, "lm", tenant="acme")
+        other = cloud if sess.destination == edge else edge
+        label = {edge: "edge", cloud: "cloud"}
+        print(f"  the scheduler placed the session on {label[sess.destination]}", flush=True)
+        print(put_model_line(sess, label[sess.destination]), flush=True)
+        # warm through the destination's own server thread (its cuBLAS
+        # handle, the allocator) before anything is timed or counted
+        sess.call("prefill", {"tokens": tokens})
+        ops.reset_launch_counts()
+        logits, loss, cycles = facade_calls(sess, tokens, N_DECODE)
+        counts = all_counts()
+        add_counts(total, counts)
+        for fn, comp, wire in cycles:
+            print(f"  {fn:8s} compute_s {comp:.5f}  wire_s {wire:.5f}", flush=True)
+        print(f"  launches through the facade: {counts}", flush=True)
+        check(counts == expected_counts(cfg),
+              f"launch counts match the model's structure: {expected_counts(cfg)}")
+        check(len(logits) == len(served["logits"]) and all(
+                  np.array_equal(a, b) for a, b in zip(logits, served["logits"])),
+              f"prefill and {N_DECODE} decode logits bit-identical to phase 5's")
+        check(loss == served["loss"], f"score loss bit-identical to phase 5's ({loss:.6f})")
+
+        # the same prefill on the other destination: TCP and SHM side by side
+        sess2 = client.session(cfg, params_host, "lm", tenant="acme", destination=other)
+        print(put_model_line(sess2, label[other]), flush=True)
+        sess2.call("prefill", {"tokens": tokens})                   # warm
+        lg2 = np.array(sess2.call("prefill", {"tokens": tokens})["logits"])
+        c2 = sess2.profiler.cycles[-1]
+        print(f"  prefill on {label[sess.destination]} "
+              f"({type(sess.runtime.channel).__name__}): compute_s {cycles[0][1]:.5f}  "
+              f"wire_s {cycles[0][2]:.5f}; on {label[other]} "
+              f"({type(sess2.runtime.channel).__name__}): compute_s {c2.gpu_s:.5f}  "
+              f"wire_s {c2.comm_s:.5f}", flush=True)
+        check(np.array_equal(lg2, served["logits"][0]),
+              f"prefill on {label[other]} bit-identical to phase 5's")
+
+        # 9c: one call sharded over both destinations, then a map
+        htoks = rng.integers(0, V, (HIDDEN_B, MAIN_S)).astype(np.int32)
+        global_config().set("shard_min_rows", HIDDEN_B // 2)   # the default floor is 256 rows
+        try:
+            ops.reset_launch_counts()
+            whole = host_float(sess.call("hidden", {"tokens": htoks}, shard=False)["hidden"])
+            split = host_float(sess.call("hidden", {"tokens": htoks}, shard=True)["hidden"])
+            counts = all_counts()
+        finally:
+            global_config().unset("shard_min_rows")
+        add_counts(total, counts)
+        st = sess.last_shard_stats
+        check(st is not None and len(st["shards"]) == 2 and not st["failed"]
+              and set(st["destinations"]) == {edge, cloud},
+              f"hidden (B {HIDDEN_B}) sharded over both destinations: {st and st['shards']}")
+        check(counts["flash_attention"] == 3 * L and counts["rmsnorm"] == 3 * (2 * L + 1),
+              f"three forwards' launches (one whole, two shards): {counts}")
+        e, scale = max_err(split, whole), whole.abs().max().item()
+        check(tuple(split.shape) == (HIDDEN_B, MAIN_S, cfg.d_model) and e <= 0.05 * scale,
+              f"stitched hidden vs the unsharded call: max abs err {e:.4f} (bf16 tolerance "
+              f"5% of max |h| {scale:.3f}); bit-identical: {torch.equal(split, whole)}")
+        print(f"  sharded call: wall {st['wall_s']:.5f} s, shards {st['shards']}", flush=True)
+
+        reqs = {}
+        for i in range(MAP_REQS):
+            t = rng.integers(0, V, (MAIN_B, MAIN_S)).astype(np.int32)
+            reqs[f"m{i}"] = {"tokens": t, "targets": np.roll(t, -1, axis=1)}
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = sess.map("score", reqs)
+        wall = time.perf_counter() - t0
+        counts = all_counts()
+        add_counts(total, counts)
+        assigned = sess.last_map_stats["assigned"]
+        served = sess.last_map_stats["served_by"]
+        check(set(assigned) == {edge, cloud} and all(n > 0 for n in assigned.values())
+              and set(served) == set(reqs) and set(served.values()) == {edge, cloud},
+              f"map of {MAP_REQS} scores spread over both destinations: "
+              f"{ {rid: label[n] for rid, n in served.items()} } in {wall:.4f} s")
+        check(counts["flash_attention"] == MAP_REQS * L, f"{MAP_REQS} forwards' launches: {counts}")
+        # both destinations run in this process with the same weights and
+        # kernels, so the values cannot tell them apart: the destination is
+        # the one the map records as having answered the request
+        direct = {sess.destination: sess, other: sess2}
+        for rid, args in reqs.items():
+            served_by = served[rid]
+            want = float(np.asarray(direct[served_by].call("score", args)["loss"]))
+            check(float(np.asarray(res[rid]["loss"])) == want,
+                  f"map {rid}: bit-identical to a direct call on {label[served_by]} "
+                  f"({want:.6f})")
+    finally:
+        if client is not None:
+            client.close()
+        for s in reversed(servers):
+            s.stop()
+        for ex in execs:
+            ex.shutdown()
+        torch.cuda.empty_cache()
+    print(f"  device memory allocated after the destinations shut down: "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB", flush=True)
+
+    # 9d: continuous batching on the card, the weights on the card
+    params = M.init_params(cfg, seed, device=dev)
+    prompts = engine_prompts(seed, V)
+
+    def requests(tag, new):
+        return [Request(f"{tag}{i}", p, max_new_tokens=n)
+                for i, (p, n) in enumerate(zip(prompts[tag], new))]
+
+    warm = ServingEngine(cfg, params, max_batch=ENGINE_B, max_len=ENGINE_LEN, device=dev)
+    for r in requests("w", [2, 2]):
+        warm.submit(r)
+    warm.run()
+    del warm
+    eng = ServingEngine(cfg, params, max_batch=ENGINE_B, max_len=ENGINE_LEN, device=dev)
+    reqs = requests("r", [ENGINE_NEW] * ENGINE_REQS)
+    for r in reqs:
+        eng.submit(r)
+    print(f"  9d: ServingEngine max_batch {ENGINE_B}, cache {ENGINE_LEN} (fp32), "
+          f"{ENGINE_REQS} requests of {ENGINE_NEW} tokens, prompts "
+          f"{[len(r.prompt) for r in reqs]}", flush=True)
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = all_counts()
+    add_counts(total, counts)
+    n_tok = sum(len(v) for v in out.values())
+    print(f"  engine: {n_tok} tokens in {wall:.3f} s, {n_tok / wall:.1f} tokens/s, "
+          f"{eng.steps} steps; launches {counts}", flush=True)
+    want = {name: 0 for name in counts} | {
+        "rmsnorm": (2 * L + 1) * (ENGINE_REQS + eng.steps),
+        "flash_attention": L * ENGINE_REQS, "decode_attention": L * eng.steps}
+    check(counts == want, f"engine launch counts: flash L x {ENGINE_REQS} prefills, decode "
+          f"L x {eng.steps} steps, rmsnorm (2L+1) per forward: {want}")
+    check(all(len(r.generated) == ENGINE_NEW and all(0 <= t < V for t in r.generated)
+              for r in reqs), f"every request generated {ENGINE_NEW} tokens in the vocab")
+    engine_checks(cfg, params, reqs, dev)
+    engine_decode_checks(eng, requests("c", ENGINE_CHECK_NEW))
+    if profile:
+        for r in requests("p", [8] * ENGINE_B):
+            eng.submit(r)
+        eng.tick()                                  # admit: four prefills
+        profile_call("engine tick (4 slots)", eng.tick)
+    del eng, params
+    torch.cuda.empty_cache()
+
+    # 9e: the entry point itself
+    serve_roles()
+    return total
+
+
 def peak_and_reset() -> int:
     peak = torch.cuda.max_memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -1415,13 +1932,14 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
                     help="trace one prefill and one decode of each served model, one "
-                         "training step and the OpenPose-lite forward at B 1 and B 64 "
-                         "(torch.profiler)")
+                         "training step, the OpenPose-lite forward at B 1 and B 64 and "
+                         "one 4-slot engine tick (torch.profiler)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on the card",
               file=sys.stderr)
         return 2
+    from repro_torch.configs import get_arch
     from repro_torch.kernels import _build
 
     t_start = time.perf_counter()
@@ -1442,17 +1960,22 @@ def main(argv=None) -> int:
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
-    rows = kernel_times(gen, dev, kernel_checks(gen, dev))
+    granite_vocab = get_arch("granite-3-2b").vocab_size
+    engine_lens = [len(p) for ps in engine_prompts(args.seed, granite_vocab).values() for p in ps]
+    rows = kernel_times(gen, dev, kernel_checks(gen, dev, engine_lens))
     rows.update(quant_times(gen, dev, quant_checks(gen, dev)))
     grad_checks(gen, dev)
     small_model_check("4", "granite-3-2b", args.seed, dev)
     small_model_check("4b", "mamba2-130m", args.seed, dev)
     small_train_check("granite-3-2b", args.seed, dev)
     small_train_check("mamba2-130m", args.seed, dev)
-    paths = [main_path("5", "granite-3-2b", MAIN_S, args.seed, dev, profile=args.profile),
-             main_path("6", "mamba2-130m", SSM_S, args.seed, dev, profile=args.profile),
+    granite, served = main_path("5", "granite-3-2b", MAIN_S, args.seed, dev,
+                                profile=args.profile)
+    paths = [granite,
+             main_path("6", "mamba2-130m", SSM_S, args.seed, dev, profile=args.profile)[0],
              train_path(args.seed, dev, profile=args.profile),
-             openpose_path(args.seed, dev, profile=args.profile)]
+             openpose_path(args.seed, dev, profile=args.profile),
+             frontdoor_path(args.seed, dev, served, profile=args.profile)]
     counts = {name: sum(p[name] for p in paths) for name in paths[0]}   # every main path's
 
     replaces = {"rmsnorm": "src/repro/kernels/rmsnorm.py:22",

@@ -128,7 +128,7 @@ from repro_torch.core.transport import Channel, ChannelClosed, ProtocolError
 from repro_torch.models.params import from_numpy_tree
 from repro_torch.obs import metrics as _obs_metrics
 from repro_torch.obs.config import global_config
-from repro_torch.utils import (BF16Array, dtype_name, resolve_device, to_numpy_tree,
+from repro_torch.utils import (concat_rows, dtype_name, resolve_device, to_numpy_tree,
                                tree_flatten, tree_leaves, tree_map, tree_unflatten)
 
 
@@ -218,13 +218,6 @@ def _batch_signature(tree: Any) -> tuple:
     leaves, treedef = tree_flatten(tree)
     sig = tuple((tuple(np.shape(l))[1:], dtype_name(l)) for l in leaves)
     return (str(treedef), sig)
-
-
-def _concat_rows(*xs):
-    """Stack one leaf of every coalesced request on axis 0 (bf16 host
-    arrays stay bf16)."""
-    out = np.concatenate([np.asarray(x) for x in xs], axis=0)
-    return out.view(BF16Array) if isinstance(xs[0], BF16Array) else out
 
 
 DEFAULT_TENANT = "default"
@@ -958,7 +951,7 @@ class DestinationExecutor:
                 if len(a) == 0 or a[0] != r:
                     return [self._run_one(m, tr)
                             for m, tr in zip(metas, trees)]
-        stacked = tree_map(_concat_rows, *trees)
+        stacked = tree_map(concat_rows, *trees)
         rmeta, out_np = self._run_one(metas[0], stacked)
         total = int(sum(rows))
         out_leaves_chk = tree_leaves(out_np)
@@ -1230,6 +1223,11 @@ class PipelinedHostRuntime(HostRuntime):
         self._sends_resumed = 0                          # guarded-by: _cv
         self._recv_retries = 0                           # guarded-by: _cv
         self._requests_completed = 0                     # guarded-by: _cv
+        # comm_quant: set by the facade after the handshake (knob on AND
+        # peer advertised the codec); None leaves the base codec untouched
+        self.quant_codec: str | None = None
+        self._quant_frames = 0                           # guarded-by: _cv
+        self._quant_bytes_saved = 0                      # guarded-by: _cv
 
     # ------------------------------------------------------------------
     def submit(self, meta: dict, tree=None, codec: str = "raw",
@@ -1275,6 +1273,14 @@ class PipelinedHostRuntime(HostRuntime):
             req = pack_message(meta, tree, codec=codec, request_id=rid)
             if trace is not None:
                 trace.add("serialize", time.perf_counter() - t_ser)
+            # comm_quant accounting: a preference tuple headed by a quant
+            # codec means _effective_codec engaged — record what the lossy
+            # encode shaved off the raw leaf bytes (floor 0: tiny leaves
+            # fall back to raw under the min-bytes knob)
+            quant_saved = -1
+            if (tree is not None and isinstance(codec, tuple) and codec
+                    and codec[0] in ("int8", "fp16")):
+                quant_saved = max(tree_wire_bytes(tree) - len(req), 0)
             deadline = time.monotonic() + self.timeout
             t_send = time.perf_counter()
             with self._slock:
@@ -1285,6 +1291,9 @@ class PipelinedHostRuntime(HostRuntime):
                 trace.add("send", time.perf_counter() - t_send)
             with self._cv:
                 self.bytes_sent += len(req)
+                if quant_saved >= 0:
+                    self._quant_frames += 1
+                    self._quant_bytes_saved += quant_saved
         except BaseException:
             with self._cv:
                 self._pending.pop(rid, None)
@@ -1544,6 +1553,26 @@ class PipelinedHostRuntime(HostRuntime):
              trace=None) -> tuple[dict, Any]:
         return self.wait(self.submit(meta, tree, codec=codec, trace=trace))
 
+    def _effective_codec(self):
+        """Wire codec for the next ``run``: the configured base, upgraded
+        to a quantizing preference list once the adaptive window's EMAs say
+        the LINK (not destination compute) bounds throughput.  Engagement
+        needs a few observations so one cold-start outlier can't flip it;
+        when compute re-dominates (codec shrank the wire share below the
+        compute EMA) the next calls naturally fall back to the base codec —
+        the same feedback loop that sizes the window."""
+        if not self.quant_codec:
+            return self.codec
+        with self._cv:
+            w = self._window
+            engaged = w.observations >= 4 and w.wire_ema > w.compute_ema
+        if not engaged:
+            return self.codec
+        base = self.codec if isinstance(self.codec, tuple) else (self.codec,)
+        prefs = (self.quant_codec,
+                 *(c for c in base if c != self.quant_codec))
+        return prefs if "raw" in prefs else (*prefs, "raw")
+
     def run_async(self, fp: str, fn: str, args, batchable: bool = False, *,
                   tenant: str | None = None, qos: dict | None = None,
                   call_id: str | None = None, trace=None) -> Future:
@@ -1554,7 +1583,7 @@ class PipelinedHostRuntime(HostRuntime):
         synchronous :meth:`run` wrapper (and the serving frontends) own the
         jittered retry loop."""
         args_np = to_numpy_tree(args)
-        codec = self.codec
+        codec = self._effective_codec()
         inner = self.submit(
             self._run_meta(fp, fn, batchable, tenant, qos, call_id,
                            codec=codec),
@@ -1618,6 +1647,9 @@ class PipelinedHostRuntime(HostRuntime):
                 "wire_ema_s": self._window.wire_ema,
                 "compute_ema_s": self._window.compute_ema,
                 "window_observations": self._window.observations,
+                "quant_codec": self.quant_codec,
+                "quant_frames": self._quant_frames,
+                "quant_bytes_saved": self._quant_bytes_saved,
             }
 
     def close(self) -> None:

@@ -202,6 +202,13 @@ def to_numpy_tree(tree: Any) -> Any:
     return tree_map(to_numpy, tree)
 
 
+def concat_rows(*xs) -> np.ndarray:
+    """Host arrays stacked on axis 0 (bf16 host arrays stay bf16): one leaf
+    of several coalesced requests, or of several shards' results."""
+    out = np.concatenate([np.asarray(x) for x in xs], axis=0)
+    return out.view(BF16Array) if isinstance(xs[0], BF16Array) else out
+
+
 def resolve_device(device="cuda") -> torch.device:
     """The entry points' device rule: CUDA unless the caller asks for the
     CPU, and no quiet fallback when CUDA is missing."""
