@@ -19,14 +19,21 @@ Phases (any failed check exits non-zero):
    bit-identical output; flash
    attention also at the training shape (B 8, S 256), a 1000-token ragged
    prompt at head dim 128 and phase 9's shapes (the engine's B 1 prefills at
-   each of its prompt lengths, the sharded call's B 4 and B 8), decode attention also at B 8, a 4096-slot cache,
-   kv_len on a split boundary and one past it, G 1 and 8, each attention
-   kernel called twice for bit-identical output; time kernel, plain version
+   each of its prompt lengths, the sharded call's B 4 and B 8), and the
+   other families' shapes: non-causal with Sq != Sk (llama-3.2-vision's
+   cross-attention, 64/8 heads of 128 over 1600 vision rows; whisper's, 16
+   heads of 64 over 1500 frames), non-causal 1500 x 1500 (whisper's
+   encoder), causal at 16/16 heads of 128 (moonshot; its engine's B 1
+   prefills at each prompt length) and 64/8 of 128; decode attention also
+   at B 8, a 4096-slot cache, kv_len on a split boundary and one past it, G 1
+   and 8, and at kv_len 1600 and 1500 for every row (cross-attention), each
+   attention kernel called twice for bit-identical output; time kernel, plain version
    and the PyTorch yardstick (``F.rms_norm``,
    ``F.scaled_dot_product_attention``, timed only, never called by the port;
    no single PyTorch call computes the SSD scan) at the main paths' shapes
-   (rmsnorm at every one of them), flash also at the training shape and
-   decode also at S 4096, with the wrappers' host time per call;
+   (rmsnorm at every one of them), flash also at the training shape and the
+   cross-attention, encoder and moonshot shapes, decode also at S 4096, kv_len
+   1600 and 1500 and moonshot's heads, with the wrappers' host time per call;
    the int8 quantize/dequantize kernels at every gradient leaf shape of
    granite-3-2b and mamba2-130m (fp32 and bf16 input), with rows that tie
    at k + 0.5, all-zero rows, rows of +-absmax and rows holding NaN or Inf:
@@ -45,7 +52,10 @@ Phases (any failed check exits non-zero):
 4. a reduced granite-3-2b in float32 through the kernels on the card against
    the plain versions on the CPU (the CPU tests hold those against the JAX
    package), and prefill + decode against forward;
-4b. the same for a reduced mamba2-130m;
+4b. the same for a reduced mamba2-130m; then (phase 4 again) reduced
+   jamba-1.5-large-398b, moonshot-v1-16b-a3b, arctic-480b,
+   llama-3.2-vision-90b (vision rows, cross gates set non-zero) and
+   whisper-medium (frames), the aux loss held too;
 4c. reduced granite-3-2b and mamba2-130m (float32) take 3 train steps on the
    card (kernels, recompute backward) and on the CPU (plain) from the same
    params: losses and params agree;
@@ -104,7 +114,21 @@ Phases (any failed check exits non-zero):
    same cache (``--profile``: one 4-slot tick traced).  Last,
    ``python -m repro_torch.launch.serve`` in its three roles as processes of
    their own (destination over TCP and SHM, stopped by SIGINT under
-   ``--drain``; host; local), each exiting 0.
+   ``--drain``; host; local), each exiting 0;
+10. the other model families at full width, the depth cut: phase 5's path
+   (``main_path``: exact launch counts from the model's structure, prefill
+   logits within 5 % and the score loss, aux included, within 2 % of the
+   plain versions on the card) for moonshot-v1-16b-a3b (64 experts top-6,
+   4 of its 48 layers); then a 4-slot ``ServingEngine`` over it, 8 requests
+   of 16 tokens, each token against the plain versions' teacher-forced B 1
+   prefill and decode steps (a MoE's capacity follows the tokens per call)
+   and phase 9d's held run (``--profile``: prefill, decode and one tick
+   traced, with the device time under the MoE layers' range);
+10b. the same path for llama-3.2-vision-90b (one block of 5 layers, the
+   cross gate set non-zero; 1600 bf16 vision rows with every call) and
+   whisper-medium whole (24 + 24 layers; 1500 bf16 frames with the prefill
+   and the score).  Phases print their wall time and, per call,
+   ``compute_s``, ``wire_s`` and the bytes sent.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -140,6 +164,32 @@ ENGINE_B, ENGINE_LEN, ENGINE_REQS, ENGINE_NEW, ENGINE_PROMPT = 4, 256, 8, 16, (5
 # and decode at their stale positions, and one request admitted into a freed slot
 ENGINE_CHECK_NEW = (3, 6, 9, 12, 4)
 HIDDEN_B, MAP_REQS = 8, 4
+# phases 10 and 10b: the other families at full width.  moonshot-v1-16b-a3b
+# cut to 4 of its 48 layers; llama-3.2-vision-90b to one block (5 of 100
+# layers: 4 self-attention layers and 1 gated cross-attention layer);
+# whisper-medium whole (24 + 24 layers).  Cross-attention contexts: 1600
+# vision rows, 1500 audio frames.
+MOONSHOT_LAYERS, VISION_LAYERS, CROSS_GATE = 4, 5, 0.5
+VISION_T, AUDIO_F = 1600, 1500
+CROSS_LENS = (VISION_T, AUDIO_F)
+# phase 3 at the new paths' shapes (B, H, K, Sq, Sk, D), dtype, causal:
+# llama-vision's cross-attention, whisper's encoder, cross-attention and
+# decoder self-attention, moonshot's self-attention (16/16 heads of 128)
+FAMILY_FLASH = [((MAIN_B, 64, 8, MAIN_S, VISION_T, 128), torch.bfloat16, False),
+                ((MAIN_B, 16, 16, AUDIO_F, AUDIO_F, 64), torch.bfloat16, False),
+                ((MAIN_B, 16, 16, MAIN_S, AUDIO_F, 64), torch.bfloat16, False),
+                ((MAIN_B, 16, 16, MAIN_S, MAIN_S, 64), torch.bfloat16, True),
+                ((MAIN_B, 16, 16, MAIN_S, MAIN_S, 128), torch.bfloat16, True),
+                ((MAIN_B, 64, 8, MAIN_S, MAIN_S, 128), torch.bfloat16, True)]
+# decode (B, K, G, S, D), q dtype, cache dtype: cross-attention at kv_len
+# 1600 and 1500 for every row; moonshot's, llama-vision's and whisper's
+# self-attention; moonshot in the engine (bf16 q, fp32 cache)
+FAMILY_DECODE = [((MAIN_B, 8, 8, VISION_T, 128), torch.bfloat16, torch.bfloat16),
+                 ((MAIN_B, 16, 1, AUDIO_F, 64), torch.bfloat16, torch.bfloat16),
+                 ((MAIN_B, 16, 1, CACHE_LEN, 128), torch.bfloat16, torch.bfloat16),
+                 ((MAIN_B, 8, 8, CACHE_LEN, 128), torch.bfloat16, torch.bfloat16),
+                 ((MAIN_B, 16, 1, CACHE_LEN, 64), torch.bfloat16, torch.bfloat16),
+                 ((ENGINE_B, 16, 1, ENGINE_LEN, 128), torch.bfloat16, torch.float32)]
 
 
 def engine_prompts(seed: int, vocab: int) -> dict:
@@ -229,9 +279,10 @@ def sdpa_gqa(q, k, v, **kw):
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def kernel_checks(gen, dev, engine_lens) -> dict:
+def kernel_checks(gen, dev, engine_lens: dict) -> dict:
     """-> each kernel's max abs error at the main path's shapes.
-    ``engine_lens``: phase 9d's prompt lengths, each prefilled at B 1."""
+    ``engine_lens``: (H, K, D) of an engine's model -> its prompt lengths,
+    each prefilled at B 1 (phase 9d's granite-3-2b, phase 10's moonshot)."""
     from repro_torch.kernels import ops
 
     def randn(*shape, dtype=torch.float32):
@@ -274,8 +325,8 @@ def kernel_checks(gen, dev, engine_lens) -> dict:
     # engine's B 1 prefills at each of its prompt lengths and at lengths on
     # and around the 64-row tile (16 positions of G 4), and the sharded
     # hidden call's whole and per-shard rows; two calls bit-identical
-    engine_cases = [((1, 32, 8, S, S, 64), bf16, True)
-                    for S in sorted(set(engine_lens) | {5, 15, 16, 17, 37, 63, 64, 65, 67})]
+    engine_cases = [((1, H, K, S, S, D), bf16, True) for (H, K, D), lens in engine_lens.items()
+                    for S in sorted(set(lens) | {5, 15, 16, 17, 37, 63, 64, 65, 67})]
     hidden_cases = [((B, 32, 8, MAIN_S, MAIN_S, 64), bf16, True)
                     for B in (HIDDEN_B // 2, HIDDEN_B)]
     for (B, H, K, Sq, Sk, D), dt, causal in [
@@ -290,7 +341,7 @@ def kernel_checks(gen, dev, engine_lens) -> dict:
             ((1, 4, 2, 37, 53, 64), f32, False), ((1, 4, 2, 37, 53, 64), bf16, True),
             ((1, 4, 2, 37, 53, 64), bf16, False), ((1, 4, 1, 19, 45, 16), bf16, True),
             ((1, 4, 1, 19, 45, 16), f32, True), ((1, 6, 2, 50, 70, 128), bf16, True),
-            *engine_cases, *hidden_cases]:
+            *engine_cases, *hidden_cases, *FAMILY_FLASH]:
         q, k, v = randn(B, Sq, H, D, dtype=dt), randn(B, Sk, K, D, dtype=dt), randn(B, Sk, K, D, dtype=dt)
         got = ops.flash_attention(q, k, v, causal=causal)
         again = ops.flash_attention(q, k, v, causal=causal)
@@ -314,13 +365,16 @@ def kernel_checks(gen, dev, engine_lens) -> dict:
                                       ((1, 4, 1, 128, 128), f32, f32),
                                       ((2, 2, 4, 100, 128), bf16, bf16),
                                       ((2, 2, 2, 64, 16), f32, bf16),
-                                      ((ENGINE_B, 8, 4, ENGINE_LEN, 64), bf16, f32)]:
+                                      ((ENGINE_B, 8, 4, ENGINE_LEN, 64), bf16, f32),
+                                      *FAMILY_DECODE]:
         q = randn(B, 1, K * G, D, dtype=qdt)
         kc, vc = randn(B, S, K, D, dtype=kdt), randn(B, S, K, D, dtype=kdt)
-        for lens in (torch.randint(1, S + 1, (B,), generator=gen, device=dev),
-                     torch.ones(B, device=dev), torch.full((B,), S, device=dev),
-                     torch.full((B,), min(32, S), device=dev),
-                     torch.full((B,), min(33, S), device=dev)):
+        # a cross-attention cache is read whole: kv_len = S for every row
+        for lens in ((torch.full((B,), S, device=dev),) if S in CROSS_LENS else (
+                torch.randint(1, S + 1, (B,), generator=gen, device=dev),
+                torch.ones(B, device=dev), torch.full((B,), S, device=dev),
+                torch.full((B,), min(32, S), device=dev),
+                torch.full((B,), min(33, S), device=dev))):
             lens = lens.to(torch.int32)
             got = ops.decode_attention(q, kc, vc, lens)
             again = ops.decode_attention(q, kc, vc, lens)
@@ -423,9 +477,21 @@ def kernel_times(gen, dev, main_err: dict) -> dict:
          ((MAIN_B, 1, 1536), f32, f32)])]
     rows["rmsnorm"] = dict(rms[0], at_other_shapes=rms[1:])
     rows["flash_attention"] = flash_row(randn, MAIN_B, MAIN_S, host=True)
-    rows["flash_attention"]["at_other_shapes"] = [flash_row(randn, TRAIN_B, TRAIN_S)]
+    # the other families' shapes: llama-vision's cross-attention (64/8
+    # heads of 128 over 1600 vision rows), whisper's encoder (1500 frames)
+    # and cross-attention, moonshot's self-attention (16/16 heads of 128)
+    rows["flash_attention"]["at_other_shapes"] = [
+        flash_row(randn, TRAIN_B, TRAIN_S),
+        flash_row(randn, MAIN_B, MAIN_S, H=64, K=8, D=128, Sk=VISION_T, causal=False),
+        flash_row(randn, MAIN_B, AUDIO_F, H=16, K=16, D=64, causal=False),
+        flash_row(randn, MAIN_B, MAIN_S, H=16, K=16, D=64, Sk=AUDIO_F, causal=False),
+        flash_row(randn, MAIN_B, MAIN_S, H=16, K=16, D=128)]
     rows["decode_attention"] = decode_row(randn, dev, CACHE_LEN, MAIN_S + N_DECODE, host=True)
-    rows["decode_attention"]["at_other_shapes"] = [decode_row(randn, dev, LONG_CACHE, LONG_KV)]
+    rows["decode_attention"]["at_other_shapes"] = [
+        decode_row(randn, dev, LONG_CACHE, LONG_KV),
+        decode_row(randn, dev, VISION_T, VISION_T, H=64, K=8, D=128),
+        decode_row(randn, dev, AUDIO_F, AUDIO_F, H=16, K=16, D=64),
+        decode_row(randn, dev, CACHE_LEN, MAIN_S + N_DECODE, H=16, K=16, D=128)]
     B, S, H, P, G, N, L = SSD_MAIN
     args = ssd_inputs(gen, dev, B, S, H, P, G, N, bf16)
     x, dtt, A, Bm, Cm = args
@@ -487,40 +553,47 @@ def rmsnorm_row(randn, shape, dt, sdt, host=False) -> dict:
     return row
 
 
-def flash_row(randn, B, S, host=False) -> dict:
-    """granite-3-2b's causal self-attention (32/8 heads of 64, bf16) at
-    (B, S): kernel, plain, SDPA and the bound (q, k, v read once, o written
-    once; 4*D flops per causal (query, key) pair per head)."""
+def flash_row(randn, B, S, host=False, H=32, K=8, D=64, Sk=None, causal=True) -> dict:
+    """Attention of B rows, Sq = S queries against Sk keys (S by default),
+    H/K heads of D, bf16 (granite-3-2b's 32/8 heads of 64 by default):
+    kernel, plain, SDPA and the bound (q, k, v read once, o written once;
+    4*D flops per (query, key) pair per head, the causal pairs only where
+    causal)."""
     bf16 = torch.bfloat16
     from repro_torch.kernels import ops
 
-    q = randn(B, S, 32, 64, dtype=bf16)
-    k, v = randn(B, S, 8, 64, dtype=bf16), randn(B, S, 8, 64, dtype=bf16)
+    Sk = S if Sk is None else Sk
+    q = randn(B, S, H, D, dtype=bf16)
+    k, v = randn(B, Sk, K, D, dtype=bf16), randn(B, Sk, K, D, dtype=bf16)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    pairs = S * (S + 1) // 2
-    b, why = bound_ms(nbytes(q, k, v) + nbytes(q), 4 * B * 32 * 64 * pairs, bf16)
-    row = dict(shape=f"q {tuple(q.shape)} k/v {tuple(k.shape)} bf16 causal",
-               ms=time_ms(lambda: ops.flash_attention(q, k, v)),
-               plain_ms=time_ms(lambda: ops.flash_attention(q, k, v, impl="ref")),
-               library_ms=time_ms(lambda: sdpa_gqa(qt, kt, vt, is_causal=True)),
+    pairs = S * (S + 1) // 2 if causal else S * Sk
+    b, why = bound_ms(nbytes(q, k, v) + nbytes(q), 4 * B * H * D * pairs, bf16)
+    row = dict(shape=f"q {tuple(q.shape)} k/v {tuple(k.shape)} bf16 "
+                     f"{'causal' if causal else 'non-causal'}",
+               ms=time_ms(lambda: ops.flash_attention(q, k, v, causal=causal)),
+               plain_ms=time_ms(lambda: ops.flash_attention(q, k, v, causal=causal, impl="ref"),
+                                iters=10),
+               library_ms=time_ms(lambda: sdpa_gqa(qt, kt, vt, is_causal=causal)),
                bound_ms=b, bound_by=why)
     if host:
-        row["host_us"] = host_us(lambda: ops.flash_attention(q, k, v))
+        row["host_us"] = host_us(lambda: ops.flash_attention(q, k, v, causal=causal))
     return row
 
 
-def decode_row(randn, dev, S, kv_len, host=False) -> dict:
-    """granite-3-2b's decode attention (B 2, 32/8 heads of 64, bf16) against
-    an S-slot cache filled to kv_len: kernel, plain, SDPA over the first
-    kv_len keys, and the bound (the kv_len rows of K and V read once)."""
+def decode_row(randn, dev, S, kv_len, host=False, H=32, K=8, D=64) -> dict:
+    """Decode attention of B 2 rows (H/K heads of D, bf16; granite-3-2b's
+    32/8 heads of 64 by default) against an S-slot cache filled to kv_len:
+    kernel, plain, SDPA over the first kv_len keys, and the bound (the
+    kv_len rows of K and V read once)."""
     bf16 = torch.bfloat16
     from repro_torch.kernels import ops
 
-    qd = randn(MAIN_B, 1, 32, 64, dtype=bf16)
-    kc, vc = randn(MAIN_B, S, 8, 64, dtype=bf16), randn(MAIN_B, S, 8, 64, dtype=bf16)
-    lens = torch.full((MAIN_B,), kv_len, dtype=torch.int32, device=dev)
-    read = 2 * MAIN_B * 8 * kv_len * 64 * 2
-    b, why = bound_ms(nbytes(qd, lens) + read + nbytes(qd), 4 * MAIN_B * 32 * 64 * kv_len, bf16)
+    B = MAIN_B
+    qd = randn(B, 1, H, D, dtype=bf16)
+    kc, vc = randn(B, S, K, D, dtype=bf16), randn(B, S, K, D, dtype=bf16)
+    lens = torch.full((B,), kv_len, dtype=torch.int32, device=dev)
+    read = 2 * B * K * kv_len * D * 2
+    b, why = bound_ms(nbytes(qd, lens) + read + nbytes(qd), 4 * B * H * D * kv_len, bf16)
     qdt, kct, vct = qd.transpose(1, 2), kc[:, :kv_len].transpose(1, 2), vc[:, :kv_len].transpose(1, 2)
     row = dict(shape=f"q {tuple(qd.shape)} cache {tuple(kc.shape)} kv_len {kv_len} bf16",
                ms=time_ms(lambda: ops.decode_attention(qd, kc, vc, lens)),
@@ -887,6 +960,27 @@ def grad_checks(gen, dev) -> None:
 # phase 4: small model on the card against the plain versions on the CPU
 # ---------------------------------------------------------------------------
 
+def set_cross_gates(params, value: float) -> None:
+    """Fill every ``cross_gate`` leaf (zeros at init: ``tanh(0)`` would
+    silence the cross-attention) with ``value``, in place."""
+    for layer in params.get("blocks", {}).get("layers", []):
+        if "cross_gate" in layer:
+            layer["cross_gate"].fill_(value)
+
+
+def family_inputs(cfg, B: int, seed: int, dev, dtype) -> dict:
+    """The family's inputs beside the tokens, made on ``dev`` from ``seed``
+    in ``dtype``: a VLM's vision rows (B, Tv, d), an encoder-decoder's
+    frames (B, F, d); empty for the other families."""
+    n = {"vlm": ("vision", cfg.num_vision_tokens),
+         "encdec": ("frames", cfg.num_audio_frames)}.get(cfg.family)
+    if n is None:
+        return {}
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 10)
+    return {n[0]: (0.5 * torch.randn(B, n[1], cfg.d_model, generator=g, device=dev)).to(dtype)}
+
+
 def small_model_check(phase: str, arch: str, seed: int, dev) -> None:
     from repro_torch.configs import get_arch, reduced
     from repro_torch.models import model as M
@@ -896,20 +990,27 @@ def small_model_check(phase: str, arch: str, seed: int, dev) -> None:
           flush=True)
     cfg = reduced(get_arch(arch))
     p_cpu = M.init_params(cfg, seed, device="cpu")
+    set_cross_gates(p_cpu, CROSS_GATE)
     p_gpu = tree_map(lambda t: t.to(dev), p_cpu)
     toks = torch.from_numpy(np.random.default_rng(seed).integers(0, cfg.vocab_size, (2, 13)))
+    ex_cpu = {k: v.cpu() for k, v in family_inputs(cfg, 2, seed, dev, torch.float32).items()}
+    ex_gpu = {k: v.to(dev) for k, v in ex_cpu.items()}
+    step_ex = {k: v for k, v in ex_cpu.items() if k == "vision"}     # decode carries vision
     with torch.inference_mode():
-        h_cpu = M.forward_hidden(cfg, p_cpu, {"tokens": toks})[0]
-        h_gpu = M.forward_hidden(cfg, p_gpu, {"tokens": toks.to(dev)})[0]
-        check(max_err(h_gpu.cpu(), h_cpu) <= 1e-4,
-              f"forward_hidden card vs CPU: max abs err {max_err(h_gpu.cpu(), h_cpu):.3e} (atol 1e-4)")
-        lg_c, c_cpu = M.prefill(cfg, p_cpu, {"tokens": toks[:, :9]}, 16)
-        lg_g, c_gpu = M.prefill(cfg, p_gpu, {"tokens": toks[:, :9].to(dev)}, 16)
+        h_cpu, aux_cpu = M.forward_hidden(cfg, p_cpu, {"tokens": toks, **ex_cpu})
+        h_gpu, aux_gpu = M.forward_hidden(cfg, p_gpu, {"tokens": toks.to(dev), **ex_gpu})
+        check(max_err(h_gpu.cpu(), h_cpu) <= 1e-4
+              and abs(aux_gpu.item() - aux_cpu.item()) <= 1e-4,
+              f"forward_hidden card vs CPU: max abs err {max_err(h_gpu.cpu(), h_cpu):.3e}, "
+              f"aux {aux_gpu.item():.6f} vs {aux_cpu.item():.6f} (atol 1e-4)")
+        lg_c, c_cpu = M.prefill(cfg, p_cpu, {"tokens": toks[:, :9], **ex_cpu}, 16)
+        lg_g, c_gpu = M.prefill(cfg, p_gpu, {"tokens": toks[:, :9].to(dev), **ex_gpu}, 16)
         steps = [(lg_g, lg_c)]
         for i in range(9, 13):
-            b = {"tokens": toks[:, i:i + 1], "pos": i}
+            b = {"tokens": toks[:, i:i + 1], "pos": i, **step_ex}
             lc, c_cpu = M.decode_step(cfg, p_cpu, c_cpu, b)
-            lg, c_gpu = M.decode_step(cfg, p_gpu, c_gpu, {**b, "tokens": b["tokens"].to(dev)})
+            lg, c_gpu = M.decode_step(cfg, p_gpu, c_gpu, {**b, **{k: v.to(dev) for k, v in b.items()
+                                                                   if k != "pos"}})
             steps.append((lg, lc))
         e = max(max_err(g[..., :cfg.vocab_size].cpu(), c[..., :cfg.vocab_size]) for g, c in steps)
         check(e <= 1e-4, f"prefill + 4 decodes card vs CPU: max abs err {e:.3e} (atol 1e-4)")
@@ -965,29 +1066,71 @@ def all_counts() -> dict:
     return {**ops.launch_counts(), **ops.branch_counts()}
 
 
+def per_call_counts(cfg) -> dict:
+    """Kernel launches of one forward (a prefill or a score) and of one
+    decode step, from the model's structure: an rmsnorm per mixer norm, per
+    gated norm (mamba), per cross norm and per FFN norm, and the final
+    norm (none for a layernorm model); flash per attention layer and per
+    cross-attention layer of a forward, and per encoder layer; decode
+    attention per attention and cross-attention layer of a step; the SSD
+    scan per mamba layer of a forward (a decode step is one plain
+    ``ssd_step``)."""
+    rms = flash = dec = scan = 0
+    for i in range(cfg.num_layers):
+        mamba = cfg.layer_kind(i) == "mamba"
+        cross = cfg.layer_has_cross_attn(i) or cfg.family == "encdec"
+        ffn = not mamba or cfg.family != "ssm"
+        rms += 1 + mamba + cross + ffn
+        flash += (not mamba) + cross
+        dec += (not mamba) + cross
+        scan += mamba
+    rms = rms + 1 if cfg.norm == "rmsnorm" else 0
+    flash += cfg.enc_layers if cfg.family == "encdec" else 0
+    return {"rmsnorm": rms, "flash_attention": flash, "decode_attention": dec, "ssd_scan": scan}
+
+
 def expected_counts(cfg) -> dict:
-    """Kernel launches of one prefill, N_DECODE decodes and one score: an
-    rmsnorm per mixer norm, per FFN norm (dense) or gated norm (SSM), and
-    the final norm; attention or the SSD scan once per layer per prefill
-    or score, the scan on the tensor cores (bf16, P 64, N 128, chunk 256);
-    decode attention once per layer per step (an SSM decode step is one
-    plain ``ssd_step``)."""
-    L, n_fwd = cfg.num_layers, 1 + N_DECODE + 1
+    """Kernel launches of one prefill, N_DECODE decodes and one score
+    (``per_call_counts``); the scan on the tensor cores (bf16, P 64, N 128,
+    chunk 256)."""
+    one = per_call_counts(cfg)
+    n_fwd = 1 + N_DECODE + 1
     quant = {"quantize_int8": 0, "dequantize_int8": 0,      # serving quantizes on the host
              "quantize_int8_vec": 0, "quantize_int8_scalar": 0}
+    return {"rmsnorm": one["rmsnorm"] * n_fwd, "flash_attention": 2 * one["flash_attention"],
+            "decode_attention": N_DECODE * one["decode_attention"],
+            "ssd_scan": 2 * one["ssd_scan"], **quant, "ssd_scan_tc": 2 * one["ssd_scan"],
+            "ssd_scan_simt": 0}
+
+
+def model_line(cfg) -> str:
+    """The model's widths as the phase lines print them."""
     if cfg.family == "ssm":
-        return {"rmsnorm": (2 * L + 1) * n_fwd, "flash_attention": 0, "decode_attention": 0,
-                "ssd_scan": 2 * L, **quant, "ssd_scan_tc": 2 * L, "ssd_scan_simt": 0}
-    return {"rmsnorm": (2 * L + 1) * n_fwd, "flash_attention": 2 * L,
-            "decode_attention": L * N_DECODE, "ssd_scan": 0, **quant,
-            "ssd_scan_tc": 0, "ssd_scan_simt": 0}
+        mixer = (f"{cfg.ssm.n_heads(cfg.d_model)} SSD heads of {cfg.ssm.head_dim}, d_state "
+                 f"{cfg.ssm.d_state}, chunk {cfg.ssm.chunk}")
+    else:
+        mixer = f"{cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.head_dim}"
+    if cfg.moe is not None:
+        mixer += (f", {cfg.moe.num_experts} experts top-{cfg.moe.top_k} of d_ff "
+                  f"{cfg.moe.d_ff}")
+    else:
+        mixer += f", d_ff {cfg.d_ff}"
+    if cfg.family == "vlm":
+        mixer += (f", cross-attention every {cfg.cross_attn_every} layers over "
+                  f"{cfg.num_vision_tokens} vision rows")
+    if cfg.family == "encdec":
+        mixer += f", {cfg.enc_layers} encoder layers over {cfg.num_audio_frames} frames"
+    return f"d_model {cfg.d_model}, {mixer}, vocab {cfg.padded_vocab}"
 
 
 def main_path(phase: str, arch: str, seq: int, seed: int, dev,
-              profile: bool = False) -> tuple[dict, dict]:
+              profile: bool = False, layers: int | None = None) -> tuple[dict, dict]:
     """-> (launch counts, outputs: the prefill and decode logits and the
-    score loss, which phase 9 holds the facade's calls to)."""
-    from repro_torch.configs import get_arch
+    score loss, which phase 9 holds the facade's calls to).  ``layers``
+    cuts the depth (never the width); a VLM's vision rows go with every
+    call and an encoder-decoder's frames with the prefill and the score,
+    made on the card from ``seed`` in the compute dtype."""
+    from repro_torch.configs import get_arch, with_overrides
     from repro_torch.core.cache import model_fingerprint
     from repro_torch.core.executor import DestinationExecutor, HostRuntime
     from repro_torch.core.library import make_model_library
@@ -997,13 +1140,13 @@ def main_path(phase: str, arch: str, seq: int, seed: int, dev,
     from repro_torch.utils import to_numpy_tree, tree_leaves
 
     cfg = get_arch(arch)
+    cut = ""
+    if layers is not None:
+        cut = f" (cut from {cfg.num_layers}; width as published)"
+        cfg = with_overrides(cfg, num_layers=layers)
     L = cfg.num_layers
-    mixer = (f"{cfg.ssm.n_heads(cfg.d_model)} SSD heads of {cfg.ssm.head_dim}, d_state "
-             f"{cfg.ssm.d_state}, chunk {cfg.ssm.chunk}" if cfg.family == "ssm"
-             else f"{cfg.num_heads}/{cfg.num_kv_heads} heads")
-    print(f"phase {phase}: main path, {cfg.name} at full width ({L} layers, d_model "
-          f"{cfg.d_model}, {mixer}, vocab {cfg.padded_vocab}), B {MAIN_B} S {seq}, "
-          f"served over TCP", flush=True)
+    print(f"phase {phase}: main path, {cfg.name} at full width ({L} layers{cut}, "
+          f"{model_line(cfg)}), B {MAIN_B} S {seq}, served over TCP", flush=True)
     dest = DestinationExecutor({"lm": make_model_library(cfg, CACHE_LEN, device=dev)},
                                name="h100", device=dev)
     server = TCPServer(dest.handle).start()
@@ -1012,13 +1155,16 @@ def main_path(phase: str, arch: str, seq: int, seed: int, dev,
         check(host.ping()["ok"], "ping")
         t0 = time.perf_counter()
         params = M.init_params(cfg, seed, device=dev)
+        set_cross_gates(params, CROSS_GATE)
         fp = model_fingerprint(cfg, params)
         params_host = to_numpy_tree(params)
         del params
         torch.cuda.empty_cache()
         n_params = sum(a.size for a in tree_leaves(params_host))
+        gates = (f", cross gates set to {CROSS_GATE} (zeros at init)"
+                 if cfg.family == "vlm" else "")
         print(f"  weights: {n_params / 1e9:.3f} B params, made on the card and brought to "
-              f"the host in {time.perf_counter() - t0:.2f} s", flush=True)
+              f"the host in {time.perf_counter() - t0:.2f} s{gates}", flush=True)
         sent0 = host.bytes_sent
         t0 = time.perf_counter()
         transfer_s = host.put_model(fp, "lm", params_host)
@@ -1030,28 +1176,38 @@ def main_path(phase: str, arch: str, seq: int, seed: int, dev,
 
         rng = np.random.default_rng(seed)
         tokens = rng.integers(0, cfg.vocab_size, (MAIN_B, seq)).astype(np.int32)
+        extra_dev = family_inputs(cfg, MAIN_B, seed, dev, getattr(torch, cfg.compute_dtype))
+        extra = to_numpy_tree(extra_dev)
+        step_extra = {k: v for k, v in extra.items() if k == "vision"}
+        for k, v in extra_dev.items():
+            print(f"  {k}: {tuple(v.shape)} {str(v.dtype)[6:]}, "
+                  f"{v.numel() * v.element_size() / 1e6:.3f} MB per call", flush=True)
         calls = []
 
         def call(fn, args):
             t = time.perf_counter()
+            sent = host.bytes_sent
             out = host.run(fp, fn, args)
             w = time.perf_counter() - t
-            calls.append((fn, host.last_compute_s, w - host.last_compute_s))
+            calls.append((fn, host.last_compute_s, w - host.last_compute_s,
+                          host.bytes_sent - sent))
             return out
 
         ops.reset_launch_counts()
-        prefill_logits = np.array(call("prefill", {"tokens": tokens})["logits"])
+        prefill_logits = np.array(call("prefill", {"tokens": tokens, **extra})["logits"])
         logits = [prefill_logits]
         nxt = prefill_logits[:, -1].argmax(-1).astype(np.int32)[:, None]
         for _ in range(N_DECODE):
-            lg = np.array(call("decode", {"tokens": nxt})["logits"])
+            lg = np.array(call("decode", {"tokens": nxt, **step_extra})["logits"])
             logits.append(lg)
             nxt = lg[:, -1].argmax(-1).astype(np.int32)[:, None]
         targets = np.concatenate([tokens[:, 1:], tokens[:, :1]], axis=1)
-        loss = float(np.asarray(call("score", {"tokens": tokens, "targets": targets})["loss"]))
+        loss = float(np.asarray(call("score", {"tokens": tokens, "targets": targets,
+                                               **extra})["loss"]))
         counts = all_counts()
-        for fn, comp, wire in calls:
-            print(f"  {fn:8s} compute_s {comp:.5f}  wire_s {wire:.5f}", flush=True)
+        for fn, comp, wire, sent in calls:
+            print(f"  {fn:8s} compute_s {comp:.5f}  wire_s {wire:.5f}  sent "
+                  f"{sent / 1e6:.3f} MB", flush=True)
         print(f"  launches on the main path: {counts}", flush=True)
 
         want = expected_counts(cfg)
@@ -1062,22 +1218,29 @@ def main_path(phase: str, arch: str, seq: int, seed: int, dev,
         check(np.isfinite(loss), f"score loss finite ({loss:.4f})")
 
         entry = dest.cache.get(fp)
+        toks = torch.from_numpy(tokens).to(dev)
         with torch.inference_mode(), ops.force_impl("ref"):
-            plain = M.prefill(cfg, entry["params"], {"tokens": torch.from_numpy(tokens).to(dev)},
+            plain = M.prefill(cfg, entry["params"], {"tokens": toks, **extra_dev},
                               CACHE_LEN)[0][..., :cfg.vocab_size].float().cpu()
+            _, m = M.loss_fn(cfg, entry["params"], {
+                "tokens": toks, "targets": torch.from_numpy(targets).to(dev), **extra_dev})
         got = torch.from_numpy(prefill_logits[..., :cfg.vocab_size])
         e = max_err(got, plain)
         scale = plain.abs().max().item()
         check(e <= 0.05 * scale,
               f"prefill logits, kernels vs plain versions on the card: max abs err {e:.4f} "
               f"({100 * e / scale:.2f}% of max |logit| {scale:.3f}; bf16 tolerance 5%)")
+        plain_loss = m["loss"].item()
+        check(abs(loss - plain_loss) <= 0.02 * abs(plain_loss),
+              f"score loss {loss:.5f} vs the plain versions' {plain_loss:.5f} on the card "
+              f"(xent {m['xent'].item():.5f} + aux {m['aux'].item():.5f}; bf16 tolerance 2%)")
         if profile:
             lib = dest.libraries["lm"]
-            toks = torch.from_numpy(tokens).to(dev)
+            step_dev = {k: v for k, v in extra_dev.items() if k == "vision"}
             profile_call(f"{arch} prefill", lambda: lib["prefill"](
-                entry["params"], entry["state"], {"tokens": toks}))
+                entry["params"], entry["state"], {"tokens": toks, **extra_dev}))
             profile_call(f"{arch} decode", lambda: lib["decode"](
-                entry["params"], entry["state"], {"tokens": toks[:, :1]}))
+                entry["params"], entry["state"], {"tokens": toks[:, :1], **step_dev}))
         return counts, {"logits": logits, "loss": loss}
     finally:
         host.close()
@@ -1470,21 +1633,40 @@ def put_model_line(sess, label: str) -> str:
     return line
 
 
-def engine_checks(cfg, params, reqs, dev) -> int:
-    """Each generated token against one teacher-forced forward of prompt +
-    generated[:-1] through the plain versions: the token's plain logit is
-    within the bf16 tolerance (5 % of the position's max |logit|) of the
-    plain argmax's.  -> the count of near-ties (token != plain argmax)."""
+def engine_checks(cfg, params, reqs, dev, stepwise: bool = False) -> int:
+    """Each generated token against a teacher-forced run through the plain
+    versions: the token's plain logit is within the bf16 tolerance (5 % of
+    the position's max |logit|) of the plain argmax's.  -> the count of
+    near-ties (token != plain argmax).  The plain run is one forward of
+    prompt + generated[:-1], or, ``stepwise``, the engine's own sequence of
+    calls at B 1: a prefill of the prompt, then a decode step per token on
+    an fp32 cache.  A MoE needs the second: its capacity follows the
+    tokens per call, so a forward over the whole sequence drops other
+    assignments than the prompt's prefill did (decode steps of up to 8
+    rows never overflow the floor of 8)."""
     from repro_torch.kernels import ops
     from repro_torch.models import model as M
+    from repro_torch.utils import tree_map
 
     V = cfg.vocab_size
     near = worst = 0
     with torch.inference_mode(), ops.force_impl("ref"):
         for r in reqs:
-            seq = torch.tensor([r.prompt + r.generated[:-1]], dtype=torch.int32, device=dev)
-            h, _ = M.forward_hidden(cfg, params, {"tokens": seq})
-            lg = M.logits_from_hidden(cfg, params, h[:, len(r.prompt) - 1:])[0, :, :V].float()
+            if stepwise:
+                lg, cache = M.prefill(cfg, params, {"tokens": torch.tensor(
+                    [r.prompt], dtype=torch.int32, device=dev)}, ENGINE_LEN)
+                cache = tree_map(lambda t: t.float(), cache)
+                rows = [lg[0, -1]]
+                for j, t in enumerate(r.generated[:-1]):
+                    lg, cache = M.decode_step(cfg, params, cache, {
+                        "tokens": torch.tensor([[t]], dtype=torch.int32, device=dev),
+                        "pos": len(r.prompt) + j})
+                    rows.append(lg[0, -1])
+                lg = torch.stack(rows)[:, :V].float()
+            else:
+                seq = torch.tensor([r.prompt + r.generated[:-1]], dtype=torch.int32, device=dev)
+                h, _ = M.forward_hidden(cfg, params, {"tokens": seq})
+                lg = M.logits_from_hidden(cfg, params, h[:, len(r.prompt) - 1:])[0, :, :V].float()
             mine = lg.gather(-1, torch.tensor(r.generated, device=dev)[:, None])[:, 0]
             gap = lg.amax(-1) - mine
             tol = 0.05 * lg.abs().amax(-1)
@@ -1494,10 +1676,28 @@ def engine_checks(cfg, params, reqs, dev) -> int:
                   f"tolerance {tol.min().item():.4f})")
             near += int((gap > 0).sum())
             worst = max(worst, gap.max().item())
-    print(f"  engine tokens against the plain teacher-forced forwards: {near} near-ties "
-          f"of {sum(len(r.generated) for r in reqs)} tokens (largest gap {worst:.4f})",
-          flush=True)
+    print(f"  engine tokens against the plain teacher-forced {'steps' if stepwise else 'forwards'}"
+          f": {near} near-ties of {sum(len(r.generated) for r in reqs)} tokens (largest gap "
+          f"{worst:.4f})", flush=True)
     return near
+
+
+def routing_flips(kernel: list, plain: list, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Rows whose experts differ between two runs of the same MoE step.
+    ``kernel``/``plain``: per MoE layer, the (probs, top_e) that
+    ``moe.route`` gave each run.  -> (flipped rows (bool), for each row the
+    plain run's relative gap (p_k - p_k+1) / p_k at the first layer whose
+    experts differ, 0 elsewhere)."""
+    rows = kernel[0][1].reshape(-1, k).shape[0]
+    flipped = torch.zeros(rows, dtype=torch.bool, device=kernel[0][1].device)
+    gap = torch.zeros(rows, device=flipped.device)
+    for (_, ek), (pp, ep) in zip(kernel, plain):
+        ek, ep = ek.reshape(rows, k).sort(-1).values, ep.reshape(rows, k).sort(-1).values
+        new = (ek != ep).any(-1) & ~flipped
+        top = pp.reshape(rows, -1).float().topk(k + 1, dim=-1).values
+        gap = torch.where(new, (top[:, k - 1] - top[:, k]) / top[:, k - 1], gap)
+        flipped |= new
+    return flipped, gap
 
 
 def engine_decode_checks(eng, reqs) -> None:
@@ -1508,15 +1708,32 @@ def engine_decode_checks(eng, reqs) -> None:
     version on the same q, fp32 cache and per-row kv_len (phase 3's bf16
     tolerance, 2e-2; two calls bit-identical), and the tick's logits
     against ``M.decode_step`` through the plain versions on a copy of the
-    same cache (phase 5's bf16 tolerance, 5 % of max |logit|)."""
+    same cache (phase 5's bf16 tolerance, 5 % of max |logit|).
+
+    A MoE routes each row to its top-k experts, a discrete choice: where
+    two experts' probabilities nearly tie, bf16 rounding in another order
+    can pick the other one, and that row's logits then differ by more than
+    rounding.  Such a row is counted and left out of the logits' hold, and
+    the choice it flipped must have been a near-tie: the plain run's k-th
+    and (k+1)-th probabilities within 10 % of each other at the first layer
+    whose experts differ (bf16 rounding moves a router logit by ~1e-2, a
+    probability by ~1 %)."""
     from repro_torch.kernels import ops
     from repro_torch.models import model as M
+    from repro_torch.models import moe
     from repro_torch.utils import tree_map
 
     cfg, V = eng.cfg, eng.cfg.vocab_size
     held = {"on": False, "calls": 0, "err": 0.0, "same": True}
     ticks = []
-    attn, decode = ops.decode_attention, eng._decode
+    attn, decode, route = ops.decode_attention, eng._decode, moe.route
+    routes = {"run": None, "kernel": [], "plain": []}
+
+    def route_held(cfg_, xg, router):
+        out = route(cfg_, xg, router)
+        if routes["run"] is not None:
+            routes[routes["run"]].append((out[0], out[2]))
+        return out
 
     def attn_held(q, k, v, kv_len, *, impl=None):
         out = attn(q, k, v, kv_len, impl=impl)
@@ -1528,29 +1745,44 @@ def engine_decode_checks(eng, reqs) -> None:
             held["same"] &= torch.equal(out, again)
         return out
 
-    def decode_held(params, cache, tokens, pos):
+    def decode_held(params, cache, tokens, pos, context=None):
         copy = tree_map(torch.clone, cache)
         active = [r is not None for r in eng.slots]
+        routes.update(run="kernel", kernel=[], plain=[])
         held["on"] = True
         try:
-            logits, cache = decode(params, cache, tokens, pos)
+            logits, cache = decode(params, cache, tokens, pos, context)
         finally:
             held["on"] = False
-        with torch.inference_mode(), ops.force_impl("ref"):
-            plain = M.decode_step(cfg, params, copy, {"tokens": tokens, "pos": pos})[0]
+        batch = {"tokens": tokens, "pos": pos}
+        if context is not None:
+            batch["vision"] = context
+        routes["run"] = "plain"
+        try:
+            with torch.inference_mode(), ops.force_impl("ref"):
+                plain = M.decode_step(cfg, params, copy, batch)[0]
+        finally:
+            routes["run"] = None
         lg, pl = logits[:, 0, :V].float(), plain[:, 0, :V].float()
-        rows = [i for i, a in enumerate(active) if a]
+        keep = torch.ones(lg.shape[0], dtype=torch.bool, device=lg.device)
+        gap = torch.zeros(lg.shape[0], device=lg.device)
+        if routes["kernel"]:
+            flipped, gap = routing_flips(routes["kernel"], routes["plain"], cfg.moe.top_k)
+            keep = ~flipped
+        rows = [i for i, a in enumerate(active) if a and keep[i]]
         agree = bool((lg[rows].argmax(-1) == pl[rows].argmax(-1)).all())
-        ticks.append((pos.tolist(), active, max_err(lg, pl), pl.abs().max().item(), agree))
+        err = max_err(lg[keep], pl[keep]) if bool(keep.any()) else 0.0
+        ticks.append((pos.tolist(), active, err, pl.abs().max().item(),
+                      agree, int((~keep).sum()), gap.max().item()))
         return logits, cache
 
     for r in reqs:
         eng.submit(r)
-    ops.decode_attention, eng._decode = attn_held, decode_held
+    ops.decode_attention, eng._decode, moe.route = attn_held, decode_held, route_held
     try:
         eng.run()
     finally:
-        ops.decode_attention = attn
+        ops.decode_attention, moe.route = attn, route
         del eng._decode
     check(all(len(r.generated) == r.max_new_tokens for r in reqs),
           f"held decode run: {len(reqs)} requests of {[r.max_new_tokens for r in reqs]} tokens "
@@ -1559,10 +1791,16 @@ def engine_decode_checks(eng, reqs) -> None:
     check(stale > 0 and all(len(set(p)) > 1 for p, *_ in ticks),
           f"every tick at unequal per-row positions, {stale} ticks with an emptied slot "
           f"decoding at its stale position (positions {[p for p, *_ in ticks]})")
-    check(held["calls"] == cfg.num_layers * len(ticks) and held["err"] <= 2e-2 and held["same"],
+    n_dec = per_call_counts(cfg)["decode_attention"]
+    check(held["calls"] == n_dec * len(ticks) and held["err"] <= 2e-2 and held["same"],
           f"every decode_attention launch of the held run ({held['calls']}) against the plain "
           f"version on the same inputs: max abs err {held['err']:.3e}, two calls bit-identical")
-    worst = max(e / s for _, _, e, s, _ in ticks)
+    if cfg.moe is not None:
+        flips, widest = sum(t[5] for t in ticks), max(t[6] for t in ticks)
+        check(widest <= 0.1, f"routing: {flips} of {sum(len(t[1]) for t in ticks)} rows took "
+              f"other experts than the plain run, each at a near-tie (largest relative gap "
+              f"{widest:.4f}, tolerance 0.1); left out of the logits' hold")
+    worst = max(e / s for _, _, e, s, *_ in ticks)
     check(worst <= 0.05, f"every tick's logits against M.decode_step through the plain versions "
           f"on the same cache: largest err {100 * worst:.2f}% of max |logit| (bf16 tolerance 5%)")
     print(f"  held decode run: argmax of the active rows equal to the plain decode's at "
@@ -1876,6 +2114,105 @@ def frontdoor_path(seed: int, dev, served: dict, profile: bool = False) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# phases 10 and 10b: the other families at full width
+# ---------------------------------------------------------------------------
+
+def moe_engine_path(cfg, seed: int, dev, profile: bool = False) -> dict:
+    """Phase 10's engine: ``ServingEngine`` (4 slots, fp32 cache) over the
+    MoE model on the card, 8 requests of 16 tokens, exact launch counts,
+    each token against the plain versions' stepwise teacher forcing, then
+    phase 9d's held run (every decode launch and each tick's logits
+    against the plain versions on the same inputs).  -> launch counts."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import Request, ServingEngine
+
+    V = cfg.vocab_size
+    params = M.init_params(cfg, seed, device=dev)
+    prompts = engine_prompts(seed, V)
+
+    def requests(tag, new):
+        return [Request(f"{tag}{i}", p, max_new_tokens=n)
+                for i, (p, n) in enumerate(zip(prompts[tag], new))]
+
+    warm = ServingEngine(cfg, params, max_batch=ENGINE_B, max_len=ENGINE_LEN, device=dev)
+    for r in requests("w", [2, 2]):
+        warm.submit(r)
+    warm.run()
+    del warm
+    eng = ServingEngine(cfg, params, max_batch=ENGINE_B, max_len=ENGINE_LEN, device=dev)
+    reqs = requests("r", [ENGINE_NEW] * ENGINE_REQS)
+    for r in reqs:
+        eng.submit(r)
+    print(f"  ServingEngine max_batch {ENGINE_B}, cache {ENGINE_LEN} (fp32), {ENGINE_REQS} "
+          f"requests of {ENGINE_NEW} tokens, prompts {[len(r.prompt) for r in reqs]}", flush=True)
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = all_counts()
+    n_tok = sum(len(v) for v in out.values())
+    print(f"  engine: {n_tok} tokens in {wall:.3f} s, {n_tok / wall:.1f} tokens/s, "
+          f"{eng.steps} steps; launches {counts}", flush=True)
+    one = per_call_counts(cfg)
+    want = {name: 0 for name in counts} | {
+        "rmsnorm": one["rmsnorm"] * (ENGINE_REQS + eng.steps),
+        "flash_attention": one["flash_attention"] * ENGINE_REQS,
+        "decode_attention": one["decode_attention"] * eng.steps}
+    check(counts == want, f"engine launch counts: flash per layer x {ENGINE_REQS} prefills, "
+          f"decode per layer x {eng.steps} steps, rmsnorm per norm per forward: {want}")
+    check(all(len(r.generated) == ENGINE_NEW and all(0 <= t < V for t in r.generated)
+              for r in reqs), f"every request generated {ENGINE_NEW} tokens in the vocab")
+    engine_checks(cfg, params, reqs, dev, stepwise=True)
+    engine_decode_checks(eng, requests("c", ENGINE_CHECK_NEW))
+    if profile:
+        for r in requests("p", [8] * ENGINE_B):
+            eng.submit(r)
+        eng.tick()                                  # admit: four prefills
+        profile_call(f"{cfg.name} engine tick (4 slots)", eng.tick)
+    del eng, params
+    torch.cuda.empty_cache()
+    return counts
+
+
+def families_path(seed: int, dev, profile: bool = False) -> dict:
+    """Phase 10: moonshot-v1-16b-a3b at full width (MOONSHOT_LAYERS of its
+    48 layers) through ``main_path`` over TCP, then its 4-slot engine.
+    Phase 10b: llama-3.2-vision-90b at full width (one block of
+    VISION_LAYERS layers) and whisper-medium whole, through ``main_path``.
+    -> the launch counts of all of them."""
+    from repro_torch.configs import get_arch, with_overrides
+
+    total = {}
+    t0 = time.perf_counter()
+    add_counts(total, main_path("10", "moonshot-v1-16b-a3b", MAIN_S, seed, dev,
+                                profile=profile, layers=MOONSHOT_LAYERS)[0])
+    torch.cuda.empty_cache()
+    cfg = with_overrides(get_arch("moonshot-v1-16b-a3b"), num_layers=MOONSHOT_LAYERS)
+    add_counts(total, moe_engine_path(cfg, seed, dev, profile=profile))
+    print(f"  phase 10 wall {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    add_counts(total, main_path("10b", "llama-3.2-vision-90b", MAIN_S, seed, dev,
+                                profile=profile, layers=VISION_LAYERS)[0])
+    torch.cuda.empty_cache()
+    add_counts(total, main_path("10b", "whisper-medium", MAIN_S, seed, dev,
+                                profile=profile)[0])
+    torch.cuda.empty_cache()
+    print(f"  phase 10b wall {time.perf_counter() - t0:.1f} s", flush=True)
+    return total
+
+
+def timed(phase: str, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, printing the phase's wall time."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    print(f"  phase {phase} wall {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
 def peak_and_reset() -> int:
     peak = torch.cuda.max_memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -1900,10 +2237,11 @@ def make_step_timer(cfg, ocfg):
 def profile_call(name: str, fn, top: int = 10) -> None:
     """Where one call's time goes: host wall time against the sum of device
     kernel time (one stream, so kernels do not overlap), the launch count,
-    the device time under the training step's profiler ranges (the
-    plain-recompute backward, the optimizer update), and the kernels that
-    take the most device time."""
+    the device time under the profiler ranges (the training step's
+    plain-recompute backward and optimizer update, the MoE layers), and the
+    kernels that take the most device time."""
     from repro_torch.kernels.autograd import BACKWARD_SPAN
+    from repro_torch.models.moe import MOE_SPAN
     from repro_torch.train.steps import UPDATE_SPAN
 
     fn()                                            # warm: allocator, cuBLAS
@@ -1916,7 +2254,7 @@ def profile_call(name: str, fn, top: int = 10) -> None:
     print(f"  profile {name}: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms "
           f"({100 * busy_ms / wall_ms:.1f}%, idle {100 - 100 * busy_ms / wall_ms:.1f}%), "
           f"{len(kernels)} device events", flush=True)
-    for span in (BACKWARD_SPAN, UPDATE_SPAN):
+    for span in (BACKWARD_SPAN, UPDATE_SPAN, MOE_SPAN):
         ranges = [e for e in events if e.name == span
                   and e.device_type == torch.autograd.DeviceType.CPU]
         if ranges:
@@ -1960,22 +2298,34 @@ def main(argv=None) -> int:
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
-    granite_vocab = get_arch("granite-3-2b").vocab_size
-    engine_lens = [len(p) for ps in engine_prompts(args.seed, granite_vocab).values() for p in ps]
+    engine_lens = {}
+    for arch in ("granite-3-2b", "moonshot-v1-16b-a3b"):       # phases 9d and 10's engines
+        cfg = get_arch(arch)
+        engine_lens[(cfg.num_heads, cfg.num_kv_heads, cfg.head_dim)] = [
+            len(p) for ps in engine_prompts(args.seed, cfg.vocab_size).values() for p in ps]
+    t0 = time.perf_counter()
     rows = kernel_times(gen, dev, kernel_checks(gen, dev, engine_lens))
     rows.update(quant_times(gen, dev, quant_checks(gen, dev)))
-    grad_checks(gen, dev)
-    small_model_check("4", "granite-3-2b", args.seed, dev)
-    small_model_check("4b", "mamba2-130m", args.seed, dev)
+    print(f"  phase 3 wall {time.perf_counter() - t0:.1f} s", flush=True)
+    timed("3b", grad_checks, gen, dev)
+    t0 = time.perf_counter()
+    for phase, arch in (("4", "granite-3-2b"), ("4b", "mamba2-130m"),
+                        ("4", "jamba-1.5-large-398b"), ("4", "moonshot-v1-16b-a3b"),
+                        ("4", "arctic-480b"), ("4", "llama-3.2-vision-90b"),
+                        ("4", "whisper-medium")):
+        small_model_check(phase, arch, args.seed, dev)
     small_train_check("granite-3-2b", args.seed, dev)
     small_train_check("mamba2-130m", args.seed, dev)
-    granite, served = main_path("5", "granite-3-2b", MAIN_S, args.seed, dev,
-                                profile=args.profile)
+    print(f"  phase 4 wall {time.perf_counter() - t0:.1f} s", flush=True)
+    granite, served = timed("5", main_path, "5", "granite-3-2b", MAIN_S, args.seed, dev,
+                            profile=args.profile)
     paths = [granite,
-             main_path("6", "mamba2-130m", SSM_S, args.seed, dev, profile=args.profile)[0],
-             train_path(args.seed, dev, profile=args.profile),
-             openpose_path(args.seed, dev, profile=args.profile),
-             frontdoor_path(args.seed, dev, served, profile=args.profile)]
+             timed("6", main_path, "6", "mamba2-130m", SSM_S, args.seed, dev,
+                   profile=args.profile)[0],
+             timed("7", train_path, args.seed, dev, profile=args.profile),
+             timed("8", openpose_path, args.seed, dev, profile=args.profile),
+             timed("9", frontdoor_path, args.seed, dev, served, profile=args.profile),
+             families_path(args.seed, dev, profile=args.profile)]
     counts = {name: sum(p[name] for p in paths) for name in paths[0]}   # every main path's
 
     replaces = {"rmsnorm": "src/repro/kernels/rmsnorm.py:22",

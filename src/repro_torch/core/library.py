@@ -3,10 +3,11 @@ as destination-executable libraries (the "Caffe" of this reproduction).
 
 Library functions have signature ``fn(params, state, args) -> outputs`` where
 ``state`` is the mutable per-session dict (serving caches live there, which
-is what migration snapshots: a dense model's KV cache or a mamba2 model's
-conv windows and SSM states, both plain tensor trees).  Arguments arrive as tensors on the
-executor's device (the parameters' device); outputs are tensors the executor
-brings back to host numpy."""
+is what migration snapshots: KV caches, conv windows and SSM states,
+cross-attention keys and values, all plain tensor trees).  Arguments arrive
+as tensors on the executor's device (the parameters' device), a VLM's
+``"vision"`` rows and an encoder-decoder's ``"frames"`` beside the
+``"tokens"``; outputs are tensors the executor brings back to host numpy."""
 from __future__ import annotations
 
 import torch
@@ -17,8 +18,10 @@ from repro_torch.utils import resolve_device
 
 
 def make_model_library(cfg, max_cache_len: int = 256, device="cuda") -> dict:
-    """Serving library for one ModelConfig (dense or ssm family): score /
-    prefill / decode / hidden."""
+    """Serving library for one ModelConfig of any family: score / prefill /
+    decode / hidden.  A VLM's calls carry ``"vision"`` (B, Tv, d), each
+    decode too, as the reference's model requires; an encoder-decoder's
+    score, prefill and hidden carry ``"frames"`` (B, F, d)."""
     resolve_device(device)      # the entry point's device rule: no quiet CPU fallback
 
     @torch.inference_mode()

@@ -1,10 +1,14 @@
-"""GQA self-attention: train / prefill / decode paths.
+"""GQA attention: train / prefill / decode paths, and cross-attention.
 
 Layouts follow the JAX package: projections ``wq (d,H,hd)``, ``wk``/``wv
 (d,K,hd)``, ``wo (H,hd,d)``; activations ``(B,S,H,hd)``; KV caches
-``{"k": (B,S_max,K,hd), "v": (B,S_max,K,hd)}``.  Prefill and train go
-through ``ops.flash_attention(causal=True)``; decode goes through
-``ops.decode_attention`` with ``kv_len = pos + 1``.
+``{"k": (B,S_max,K,hd), "v": (B,S_max,K,hd)}``, cross-attention caches
+``{"cross_k": (B,Tc,K,hd), "cross_v": (B,Tc,K,hd)}``.  Prefill and train go
+through ``ops.flash_attention`` (causal, or bidirectional for an encoder);
+cross-attention over a context of Tc rows goes through it non-causal with
+Sq != Sk.  Decode goes through ``ops.decode_attention``: self-attention
+with ``kv_len = pos + 1``, cross-attention with ``kv_len = Tc`` for every
+row.
 """
 from __future__ import annotations
 
@@ -47,20 +51,20 @@ def _heads_proj(x, w):
     return (x @ w.to(x.dtype).reshape(d, h * k)).view(B, S, h, k)
 
 
-def _project_q(cfg, p, x, positions):
+def _project_q(cfg, p, x, positions, rope: bool):
     q = _heads_proj(x, p["wq"])
     if "bq" in p:
         q = q + p["bq"].to(x.dtype)
-    return apply_rope(q, positions, cfg.rope_theta)
+    return apply_rope(q, positions, cfg.rope_theta) if rope else q
 
 
-def _project_kv(cfg, p, x, positions):
+def _project_kv(cfg, p, x, positions, rope: bool):
     k = _heads_proj(x, p["wk"])
     v = _heads_proj(x, p["wv"])
     if "bk" in p:
         k = k + p["bk"].to(x.dtype)
         v = v + p["bv"].to(x.dtype)
-    return apply_rope(k, positions, cfg.rope_theta), v
+    return (apply_rope(k, positions, cfg.rope_theta) if rope else k), v
 
 
 def _out_proj(p, o):
@@ -75,28 +79,28 @@ def _out_proj(p, o):
 # Self-attention entry points
 # ---------------------------------------------------------------------------
 
-def self_attention(cfg, p, x, positions):
-    """Causal self-attention (train path).  x: (B,S,d)."""
-    q = _project_q(cfg, p, x, positions)
-    k, v = _project_kv(cfg, p, x, positions)
-    return _out_proj(p, ops.flash_attention(q, k, v, causal=True))
+def self_attention(cfg, p, x, positions, *, rope: bool = True, causal: bool = True):
+    """Full self-attention (train path; bidirectional for encoders).  x: (B,S,d)."""
+    q = _project_q(cfg, p, x, positions, rope)
+    k, v = _project_kv(cfg, p, x, positions, rope)
+    return _out_proj(p, ops.flash_attention(q, k, v, causal=causal))
 
 
-def self_attention_prefill(cfg, p, x, positions, cache: dict):
+def self_attention_prefill(cfg, p, x, positions, cache: dict, *, rope: bool = True):
     """Causal self-attention that also fills the KV cache: ``cache`` holds
     zeroed (B,cache_len,K,hd) buffers in the compute dtype (the dtype the
     reference's prefill cache takes), written in place.  Returns (out,
     cache)."""
     S = x.shape[1]
-    q = _project_q(cfg, p, x, positions)
-    k, v = _project_kv(cfg, p, x, positions)
+    q = _project_q(cfg, p, x, positions, rope)
+    k, v = _project_kv(cfg, p, x, positions, rope)
     o = ops.flash_attention(q, k, v, causal=True)
     cache["k"][:, :S] = k
     cache["v"][:, :S] = v
     return _out_proj(p, o), cache
 
 
-def self_attention_decode(cfg, p, x, cache, pos):
+def self_attention_decode(cfg, p, x, cache, pos, *, rope: bool = True):
     """One-token decode.  x: (B,1,d); cache k/v: (B,S_max,K,hd); pos: ()
     shared write index, or (B,) per-row indices (continuous batching).
 
@@ -114,8 +118,8 @@ def self_attention_decode(cfg, p, x, cache, pos):
     pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
     per_row = pos.ndim == 1
     positions = pos[:, None] if per_row else pos.reshape(1, 1).expand(B, 1)
-    q = _project_q(cfg, p, x, positions)
-    k_new, v_new = _project_kv(cfg, p, x, positions)
+    q = _project_q(cfg, p, x, positions, rope)
+    k_new, v_new = _project_kv(cfg, p, x, positions, rope)
     idx = pos.long().clamp(0, S_max - 1)
     if per_row:
         rows = torch.arange(B, device=x.device)
@@ -129,3 +133,45 @@ def self_attention_decode(cfg, p, x, cache, pos):
     o = ops.decode_attention(q, kc, vc, kv_len)
     return _out_proj(p, o), {"k": kc, "v": vc}
 
+
+# ---------------------------------------------------------------------------
+# Cross-attention (whisper decoder, llama-vision image layers)
+# ---------------------------------------------------------------------------
+
+def cross_kv(cfg, p, context):
+    """The context's keys and values, (B,Tc,K,hd) each, without RoPE."""
+    k, v = _project_kv(cfg, p, context, None, rope=False)
+    return {"cross_k": k, "cross_v": v}
+
+
+def cross_attention(cfg, p, x, context, kv: dict | None = None):
+    """Bidirectional cross-attention; context: (B, Tc, d).  ``kv``: the
+    context's ``cross_kv``, when the caller already has it (prefill stores
+    the same keys and values in its cache).
+
+    The reference upcasts both sides to fp32 and casts the result to q's
+    dtype, so a context in another dtype than x's (fp32 frames against a
+    bf16 decoder) is attended in the wider of the two."""
+    kv = cross_kv(cfg, p, context) if kv is None else kv
+    q = _project_q(cfg, p, x, None, rope=False)
+    k, v = kv["cross_k"], kv["cross_v"]
+    dt = torch.promote_types(q.dtype, k.dtype)
+    o = ops.flash_attention(q.to(dt), k.to(dt), v.to(dt), causal=False)
+    return _out_proj(p, o.to(q.dtype))
+
+
+def cross_attention_cached(cfg, p, x, cache):
+    """Decode-time cross-attention against the cached context KV: every
+    row sees all Tc context rows.  x: (B,1,d)."""
+    B = x.shape[0]
+    ck, cv = cache["cross_k"], cache["cross_v"]
+    q = _project_q(cfg, p, x, None, rope=False)
+    kv_len = torch.full((B,), ck.shape[1], dtype=torch.int32, device=x.device)
+    return _out_proj(p, ops.decode_attention(q, ck, cv, kv_len))
+
+
+def init_attn_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
+                    device="cuda") -> dict:
+    K, hd = cfg.num_kv_heads, cfg.head_dim
+    return {"k": torch.zeros((batch, max_len, K, hd), dtype=dtype, device=device),
+            "v": torch.zeros((batch, max_len, K, hd), dtype=dtype, device=device)}

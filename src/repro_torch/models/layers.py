@@ -83,6 +83,20 @@ def apply_rope(x, positions, theta: float):
     return out.to(x.dtype)
 
 
+def sinusoidal_at(positions, d: int):
+    """Whisper-style sinusoidal embeddings evaluated at ``positions`` (any
+    int tensor); returns fp32 of shape positions.shape + (d,)."""
+    dim = torch.arange(d // 2, dtype=torch.float32, device=positions.device)
+    step = torch.log(torch.tensor(10000.0, device=positions.device)) / max(d // 2 - 1, 1)
+    inv = torch.exp(-dim * step)                    # fp32 throughout, as the reference
+    ang = positions.float()[..., None] * inv
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def sinusoidal_positions(n: int, d: int, device=None):
+    return sinusoidal_at(torch.arange(n, device=device), d)
+
+
 # ---------------------------------------------------------------------------
 # Linear helpers
 # ---------------------------------------------------------------------------

@@ -1,0 +1,133 @@
+"""Mixture-of-Experts layer: top-k routing with capacity-bounded sort dispatch.
+
+The JAX package's algorithm (``repro/models/moe.py``), with the same
+arithmetic: routing in fp32, the top-k probabilities renormalised, the
+Switch load-balancing aux loss over all tokens; assignments stably sorted
+by expert id, each given a position-in-expert by a cumulative-count
+subtraction; assignments beyond the per-expert ``capacity`` dropped; rows
+written into an (G, E, C, d) buffer that feeds batched per-expert SwiGLU
+GEMMs; the combine weighted by the kept, renormalised probabilities.
+
+Two dispatch scopes, selected by ``cfg.moe_sharded_dispatch``: ``False``,
+one global group over all B*S tokens (G = 1; the rows of a batch compete
+for capacity), and ``True``, one group per batch row (G = B, capacity per
+row).  The reference's sharding hints (``_constrain``) have no counterpart:
+this package runs on one device.
+
+Two steps are written so that they give the same result on every call:
+
+* dispatch: each kept assignment owns its slot, so the kept rows are
+  written with a plain indexed write; dropped ones go to a scratch row past
+  the buffer (the reference adds them, zeroed, at slot 0 of their expert,
+  which changes no value);
+* combine: the reference scatter-adds each assignment's output into its
+  token.  A CUDA ``index_add_`` sums in no fixed order, so two identical
+  calls could differ in the last bit; here the outputs are gathered back
+  into (G, T, k, d) through the inverse of the sort and summed over k.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.mlp import apply_mlp, mlp_specs
+from repro_torch.models.params import ParamSpec
+
+#: profiler range around each MoE layer (routing, dispatch, experts, combine)
+MOE_SPAN = "apply_moe"
+
+
+def moe_specs(cfg) -> dict:
+    m = cfg.moe
+    d, E, f = cfg.d_model, m.num_experts, m.d_ff
+    specs = {
+        "router": ParamSpec((d, E), ("embed", None), "normal", d ** -0.5,
+                            dtype=torch.float32),
+        "w_gate": ParamSpec((E, d, f), ("experts", "embed", "expert_mlp"),
+                            "normal", d ** -0.5),
+        "w_up": ParamSpec((E, d, f), ("experts", "embed", "expert_mlp"),
+                          "normal", d ** -0.5),
+        "w_down": ParamSpec((E, f, d), ("experts", "expert_mlp", "embed"),
+                            "normal", f ** -0.5),
+    }
+    if m.dense_residual:
+        specs["dense"] = mlp_specs(cfg)
+    return specs
+
+
+def _capacity(cfg, n_tokens: int) -> int:
+    """Rows per expert per group: the reference's rule, rounded up to 8
+    with a floor of 8.  It truncates before rounding, so it can fall below
+    the balanced load (t 17, e 2, k 1, cf 1.0 gives 8 < 8.5); the port keeps
+    that, since a larger C changes which assignments drop."""
+    m = cfg.moe
+    c = int(n_tokens * m.top_k / m.num_experts * m.capacity_factor)
+    return max(8, -(-c // 8) * 8)
+
+
+def route(cfg, xg, router):
+    """fp32 routing of xg (G,T,d) -> (probs (G,T,E), top_p (G,T,k)
+    renormalised, top_e (G,T,k))."""
+    probs = torch.softmax(xg.float() @ router.float(), dim=-1)
+    top_p, top_e = torch.topk(probs, cfg.moe.top_k, dim=-1)
+    return probs, top_p / top_p.sum(dim=-1, keepdim=True), top_e
+
+
+def apply_moe(cfg, p, x):
+    """x: (B, S, d) -> (out (B, S, d), aux_loss fp32 scalar)."""
+    with torch.profiler.record_function(MOE_SPAN):
+        return _apply_moe(cfg, p, x)
+
+
+def _apply_moe(cfg, p, x):
+    m = cfg.moe
+    B, S, d = x.shape
+    E, k = m.num_experts, m.top_k
+    G = B if cfg.moe_sharded_dispatch else 1     # dispatch groups
+    T = S if cfg.moe_sharded_dispatch else B * S  # tokens per group
+    xg = x.reshape(G, T, d)
+    dev = x.device
+
+    # --- routing (fp32) ----------------------------------------------------
+    probs, top_p, top_e = route(cfg, xg, p["router"])
+    flat_e = top_e.reshape(G, T * k)
+    # assignments per (group, expert); one_hot with the class count given
+    # (unlike bincount) reads no value back to the host
+    counts = F.one_hot(flat_e, E).sum(dim=1)                     # (G,E)
+    # load-balancing aux loss (Switch), computed over ALL tokens
+    me = probs.mean(dim=(0, 1))                                  # (E,)
+    fe = counts.sum(dim=0).float() / (G * T * k)
+    aux = m.router_aux_weight * E * torch.sum(fe * me)
+
+    # --- capacity-bounded sort dispatch --------------------------------------
+    C = _capacity(cfg, T)
+    sort_idx = torch.argsort(flat_e, dim=-1, stable=True)
+    sorted_e = flat_e.gather(-1, sort_idx)
+    starts = torch.cumsum(counts, dim=-1) - counts               # exclusive
+    pos_in_e = torch.arange(T * k, device=dev)[None] - starts.gather(-1, sorted_e)
+    keep = pos_in_e < C
+    dest = sorted_e * C + torch.where(keep, pos_in_e, 0)         # (G,TK)
+    src_tok = sort_idx // k
+
+    rows = xg.gather(1, src_tok[..., None].expand(-1, -1, d))    # (G,TK,d)
+    group = torch.arange(G, device=dev)[:, None] * (E * C)
+    slot = torch.where(keep, group + dest, G * E * C)            # drops -> scratch row
+    buf = xg.new_zeros(G * E * C + 1, d).index_put((slot.reshape(-1),), rows.reshape(-1, d))
+    buf = buf[:-1].reshape(G, E, C, d)
+
+    # --- per-expert SwiGLU (batched GEMMs over experts) ----------------------
+    dt = buf.dtype
+    be = buf.transpose(0, 1).reshape(E, G * C, d)                # (E, G*C, d)
+    h = F.silu(torch.bmm(be, p["w_gate"].to(dt))) * torch.bmm(be, p["w_up"].to(dt))
+    out = torch.bmm(h, p["w_down"].to(dt))                       # (E, G*C, d)
+    out_flat = out.reshape(E, G, C, d).transpose(0, 1).reshape(G, E * C, d)
+
+    # --- combine: back to token order, summed over k -------------------------
+    w = (top_p.reshape(G, T * k).gather(-1, sort_idx) * keep).to(dt)   # (G,TK)
+    contrib = out_flat.gather(1, dest[..., None].expand(-1, -1, d)) * w[..., None]
+    inv = torch.argsort(sort_idx, dim=-1)                        # sorted -> (t, j) order
+    y = contrib.gather(1, inv[..., None].expand(-1, -1, d)).reshape(G, T, k, d).sum(dim=2)
+
+    if m.dense_residual:
+        y = y + apply_mlp(cfg, p["dense"], xg)
+    return y.reshape(B, S, d), aux

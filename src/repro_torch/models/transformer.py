@@ -1,7 +1,8 @@
-"""Decoder-only stack (dense and pure-SSM families): a Python loop over the
-stacked block parameters (the reference's ``lax.scan``), with optional remat
-on the train path.  Returns hidden states; unembedding and losses live in
-``repro_torch.models.model``."""
+"""Decoder-only stack (families dense / moe / ssm / hybrid / vlm): a Python
+loop over the stacked block parameters (the reference's ``lax.scan``), with
+optional remat on the train path.  Returns hidden states; unembedding and
+losses live in ``repro_torch.models.model``.  ``context`` is the VLM's
+vision rows (B, Tv, d), which its cross-attention layers attend to."""
 from __future__ import annotations
 
 import torch
@@ -40,58 +41,74 @@ def _unstack(tree) -> list:
             for i in range(len(per_leaf[0]))]
 
 
-def _train_block(cfg, bp, h, positions):
-    return apply_block(cfg, bp, h, positions=positions, mode="train", cache=None)[0]
+def _train_block(cfg, bp, h, positions, context):
+    h, _, aux = apply_block(cfg, bp, h, positions=positions, mode="train", cache=None,
+                            context=context)
+    return h, aux
 
 
-def lm_hidden(cfg, params, tokens):
-    """Train-path forward to final hidden states (B, S, d).  With
-    ``cfg.remat`` and autograd recording, each block runs under
-    ``torch.utils.checkpoint`` (the reference wraps its scan body in
-    ``jax.checkpoint``): backward recomputes the block's forward, so its
-    kernels launch twice per training step."""
+def lm_hidden(cfg, params, tokens, *, context=None):
+    """Train-path forward -> (final hidden states (B, S, d), the aux loss
+    summed over layers, fp32).  With ``cfg.remat`` and autograd recording,
+    each block runs under ``torch.utils.checkpoint`` (the reference wraps
+    its scan body in ``jax.checkpoint``): backward recomputes the block's
+    forward, so its kernels launch twice per training step."""
     positions = _positions(tokens)
     h = embed_tokens(cfg, params["embed"], tokens)
     remat = cfg.remat and torch.is_grad_enabled()
+    auxes = []
     for bp in _unstack(params["blocks"]):
         if remat:
-            h = checkpoint(_train_block, cfg, bp, h, positions, use_reentrant=False,
-                           preserve_rng_state=False)
+            h, aux = checkpoint(_train_block, cfg, bp, h, positions, context,
+                                use_reentrant=False, preserve_rng_state=False)
         else:
-            h = _train_block(cfg, bp, h, positions)
-    return apply_norm(cfg, params["final_norm"], h)
+            h, aux = _train_block(cfg, bp, h, positions, context)
+        if isinstance(aux, torch.Tensor):
+            auxes.append(aux)
+    aux = (torch.stack(auxes).sum() if auxes
+           else torch.zeros((), dtype=torch.float32, device=h.device))
+    return apply_norm(cfg, params["final_norm"], h), aux
 
 
-def lm_prefill(cfg, params, tokens, cache_len: int, *, cache_dtype=torch.bfloat16):
+def lm_prefill(cfg, params, tokens, cache_len: int, *, context=None,
+               cache_dtype=torch.bfloat16):
     """Prefill: returns (h (B,S,d), stacked cache).
 
     The cache takes the COMPUTE dtype, as the reference's does:
     ``lm_prefill`` there uses its ``cache_dtype`` init only for the shape
     and stacks the prefill's own keys and values (or, for an SSM layer,
     conv windows; its ``ssm`` state stays fp32).  ``cache_dtype`` is
-    accepted for that reason and has no effect here either."""
+    accepted for that reason and has no effect here either.  A VLM's
+    cross-attention leaves take its context's dtype, the dtype of the
+    reference's ``cross_kv``."""
     del cache_dtype
     B, _ = tokens.shape
     positions = _positions(tokens)
     h = embed_tokens(cfg, params["embed"], tokens)
-    cache = stacked_cache(cfg, B, cache_len, h.dtype, h.device)
+    cache = stacked_cache(cfg, B, cache_len, h.dtype, h.device,
+                          None if context is None else context.dtype)
     for bp, bc in zip(_unstack(params["blocks"]), _unstack(cache)):
-        h, _ = apply_block(cfg, bp, h, positions=positions, mode="prefill", cache=bc)
+        h, _, _ = apply_block(cfg, bp, h, positions=positions, mode="prefill", cache=bc,
+                              context=context)
     return apply_norm(cfg, params["final_norm"], h), cache
 
 
-def lm_decode_step(cfg, params, cache, tokens, pos):
+def lm_decode_step(cfg, params, cache, tokens, pos, *, context=None):
     """One-token decode.  tokens: (B,1); pos: () shared or (B,) per-row.
     Returns (h, cache); the cache is updated in place (an SSM conv leaf in
     another dtype than the compute dtype is first converted to it, as the
-    reference's decode returns it)."""
+    reference's decode returns it).  ``context`` is accepted as the
+    reference accepts it and unused: cross-attention reads the cached
+    context keys and values."""
+    del context
     pos = torch.as_tensor(pos, dtype=torch.int32, device=tokens.device)
     B = tokens.shape[0]
     positions = pos[:, None] if pos.ndim == 1 else pos.reshape(1, 1).expand(B, 1)
     h = embed_tokens(cfg, params["embed"], tokens)
     cache = decode_cache(cfg, cache, h.dtype)
     for bp, bc in zip(_unstack(params["blocks"]), _unstack(cache)):
-        h, _ = apply_block(cfg, bp, h, positions=positions, mode="decode", cache=bc, pos=pos)
+        h, _, _ = apply_block(cfg, bp, h, positions=positions, mode="decode", cache=bc,
+                              pos=pos)
     return apply_norm(cfg, params["final_norm"], h), cache
 
 

@@ -52,20 +52,33 @@ class Request:
     done: bool = False
 
 
+def _as_device(x, device) -> torch.Tensor:
+    """A context row (tensor or host array) as a tensor on ``device``."""
+    return torch.as_tensor(x if isinstance(x, torch.Tensor) else np.asarray(x), device=device)
+
+
 class ServingEngine:
     """Continuous batching on one device.  ``params`` is a tree of tensors
     or host arrays (the JAX package's numpy tree loads as it is); it is
     moved to ``device`` (``"cuda"`` unless the caller asks for ``"cpu"``,
-    and no quiet fallback)."""
+    and no quiet fallback).  ``context_fn``, for a VLM: request id -> its
+    vision rows (Tv, d), attended by the request's prefill and carried by
+    each decode as the reference's does (empty slots get zeros).
+
+    Every slot decodes in one batched step, the empty ones at their stale
+    positions, so where rows share a computation (a MoE's global dispatch,
+    whose capacity the batch's tokens compete for) a row's output depends
+    on its neighbours, as it does in the reference's engine."""
 
     def __init__(self, cfg, params, *, max_batch: int = 4, max_len: int = 256,
-                 device="cuda") -> None:
+                 context_fn=None, device="cuda") -> None:
         assert cfg.family != "encdec", "engine currently targets decoder LMs"
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = from_numpy_tree(params, self.device)
         self.B = max_batch
         self.max_len = max_len
+        self.context_fn = context_fn  # optional: rid -> vision context row
         self.queue: collections.deque[Request] = collections.deque()
         self.slots: list[Optional[Request]] = [None] * max_batch
         self.pos = np.zeros(max_batch, np.int32)
@@ -80,14 +93,22 @@ class ServingEngine:
     def submit(self, req: Request) -> None:
         self.queue.append(req)
 
-    @torch.inference_mode()
-    def _decode(self, params, cache, tokens, pos):
-        return M.decode_step(self.cfg, params, cache, {"tokens": tokens, "pos": pos})
+    def _context(self, rid):
+        return _as_device(self.context_fn(rid), self.device)
 
     @torch.inference_mode()
-    def _prefill(self, params, tokens):
-        return M.prefill(self.cfg, params, {"tokens": tokens}, self.max_len,
-                         cache_dtype=torch.float32)
+    def _decode(self, params, cache, tokens, pos, context=None):
+        batch = {"tokens": tokens, "pos": pos}
+        if context is not None:
+            batch["vision"] = context
+        return M.decode_step(self.cfg, params, cache, batch)
+
+    @torch.inference_mode()
+    def _prefill(self, params, tokens, context=None):
+        batch = {"tokens": tokens}
+        if context is not None:
+            batch["vision"] = context
+        return M.prefill(self.cfg, params, batch, self.max_len, cache_dtype=torch.float32)
 
     def _prefill_fn(self, plen: int):
         """The prefill for a prompt of ``plen`` tokens.  Eager calls need no
@@ -103,9 +124,11 @@ class ServingEngine:
             req = self.queue.popleft()
             tokens = torch.tensor(np.array(req.prompt, np.int32)[None],
                                   device=self.device)
-            logits, cache1 = self._prefill(self.params, tokens)
+            ctx = self._context(req.rid)[None] if self.context_fn else None
+            logits, cache1 = self._prefill(self.params, tokens, ctx)
             # splice the single-row cache (compute dtype) into the batched
-            # cache at `slot` on axis 1, cast to the batched cache's dtype
+            # cache at `slot` on axis 1, cast to the batched cache's dtype:
+            # every leaf of every layer, KV, conv/ssm and cross_k/cross_v
             for big, one in zip(tree_leaves(self.cache), tree_leaves(cache1)):
                 big[:, slot].copy_(one[:, 0])
             nxt = int(torch.argmax(logits[0, -1, :self.cfg.vocab_size]))
@@ -135,7 +158,12 @@ class ServingEngine:
             return 0
         tokens = torch.tensor(self.last_token[:, None], device=self.device)
         pos = torch.tensor(self.pos, device=self.device)
-        logits, self.cache = self._decode(self.params, self.cache, tokens, pos)
+        ctx = None
+        if self.context_fn:
+            rows = [self._context(r.rid) if r else None for r in self.slots]
+            zeros = torch.zeros_like(rows[active[0]])
+            ctx = torch.stack([zeros if row is None else row for row in rows])
+        logits, self.cache = self._decode(self.params, self.cache, tokens, pos, ctx)
         nxt = torch.argmax(logits[:, 0, :self.cfg.vocab_size], dim=-1).cpu().numpy()
         for i in active:
             self.pos[i] += 1
@@ -465,19 +493,27 @@ class ShardedOffloadFrontend:
 # Reference: sequential (unbatched) greedy generation, for equivalence tests
 # ---------------------------------------------------------------------------
 
+
 @torch.inference_mode()
 def generate_sequential(cfg, params, prompt: list, max_new_tokens: int,
-                        max_len: int = 256, device="cuda") -> list:
+                        max_len: int = 256, context=None, device="cuda") -> list:
+    """Greedy tokens of one request, prefilled and decoded alone.
+    ``context``: a VLM request's vision rows (Tv, d)."""
     dev = resolve_device(device)
     params = from_numpy_tree(params, dev)
     tokens = torch.tensor(np.array(prompt, np.int32)[None], device=dev)
-    logits, cache = M.prefill(cfg, params, {"tokens": tokens}, max_len,
-                              cache_dtype=torch.float32)
+    batch = {"tokens": tokens}
+    if context is not None:
+        context = _as_device(context, dev)[None]
+        batch["vision"] = context
+    logits, cache = M.prefill(cfg, params, batch, max_len, cache_dtype=torch.float32)
     out = [int(torch.argmax(logits[0, -1, :cfg.vocab_size]))]
     pos = len(prompt)
     for _ in range(max_new_tokens - 1):
         db = {"tokens": torch.tensor([[out[-1]]], dtype=torch.int32, device=dev),
               "pos": torch.tensor(pos, dtype=torch.int32, device=dev)}
+        if context is not None:
+            db["vision"] = context
         logits, cache = M.decode_step(cfg, params, cache, db)
         out.append(int(torch.argmax(logits[0, 0, :cfg.vocab_size])))
         pos += 1

@@ -6,6 +6,10 @@ state is a conv window and an SSM state instead of a KV cache.  Then
 OpenPose-lite, the paper's workload: JAX-package hosts, synchronous and
 pipelined, drive a port destination; the port's pipelined host drives
 JAX-package destinations; both packages' sessions agree on the fingerprint.
+Last, the other families: a JAX-package host drives a port destination
+serving a MoE (moonshot) and a VLM (llama-3.2-vision, its vision rows sent
+with every call), and the port's host drives a JAX-package destination
+serving whisper (frames with the prefill and the score).
 
 Tolerance 1e-4 on float32 logits and loss (the reference's own
 cache-consistency bound is 2e-3); OpenPose beliefs within 1e-5·max|ref|."""
@@ -340,3 +344,79 @@ def test_sessions_agree_on_the_openpose_fingerprint(openpose_setup):
     port = AvecSession(TOP.OpenPoseLite(), params, None, "openpose")
     port_t = AvecSession(TOP.OpenPoseLite(), from_numpy_tree(params, "cpu"), None, "openpose")
     assert ref.fp == port.fp == port_t.fp == fp
+
+
+# ---------------------------------------------------------------------------
+# the other families: MoE, cross-attention, encoder-decoder
+# ---------------------------------------------------------------------------
+
+def _family_setup(name, seed):
+    cfg = reduced(get_arch(name))
+    tcfg = tconfigs.reduced(tconfigs.get_arch(name))
+    params = jax.tree_util.tree_map_with_path(        # non-zero cross gates (zeros at init)
+        lambda path, x: np.full(x.shape, 0.7, x.dtype)
+        if "cross_gate" in jax.tree_util.keystr(path) else np.asarray(x),
+        RM.init_params(cfg, jax.random.PRNGKey(seed)))
+    fp = model_fingerprint(tcfg, from_numpy_tree(params, "cpu"))
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab_size, (B, S + 4)).astype(np.int32)
+    extra = {}
+    if cfg.family == "vlm":
+        extra["vision"] = (0.5 * rng.standard_normal(
+            (B, cfg.num_vision_tokens, cfg.d_model))).astype(np.float32)
+    if cfg.family == "encdec":
+        extra["frames"] = (0.5 * rng.standard_normal(
+            (B, cfg.num_audio_frames, cfg.d_model))).astype(np.float32)
+    return cfg, tcfg, params, fp, toks, extra
+
+
+def _drive_family(host, fp, params, toks, extra):
+    """_drive with the family's inputs: the vision rows ride every call,
+    the frames the prefill and the score."""
+    per_step = {k: v for k, v in extra.items() if k == "vision"}
+    assert host.ping()["ok"]
+    host.put_model(fp, "lm", params)
+    out = [np.array(host.run(fp, "prefill", {"tokens": toks[:, :S], **extra})["logits"])]
+    for i in range(3):
+        out.append(np.array(host.run(fp, "decode", {"tokens": toks[:, S + i:S + i + 1],
+                                                    **per_step})["logits"]))
+    tgt = np.roll(toks[:, :S], -1, axis=1)
+    out.append(np.array(host.run(fp, "score", {"tokens": toks[:, :S], "targets": tgt,
+                                               **extra})["loss"]))
+    return out
+
+
+@pytest.mark.parametrize("name", ["moonshot-v1-16b-a3b", "llama-3.2-vision-90b"])
+def test_reference_host_drives_port_moe_and_vlm_destinations(name):
+    cfg, tcfg, params, fp, toks, extra = _family_setup(name, 2)
+    ref = _Node(_ref_dest(cfg), RefServer, RefHost, RefChannel)
+    port = _Node(_port_dest(tcfg), TCPServer, RefHost, RefChannel)
+    try:
+        want = _drive_family(ref.host, fp, params, toks, extra)
+        got = _drive_family(port.host, fp, params, toks, extra)
+        assert port.host.has_model(fp)
+        for a, b in zip(got, want):
+            assert a.shape == b.shape and a.dtype == b.dtype == np.float32
+            np.testing.assert_allclose(a, b, atol=TOL, rtol=TOL)
+    finally:
+        ref.close()
+        port.close()
+
+
+def test_port_host_drives_reference_whisper_destination():
+    """The port's host sends tensors to a JAX-package destination serving
+    whisper; the same calls on a port destination give the same outputs."""
+    cfg, tcfg, params, fp, toks, extra = _family_setup("whisper-medium", 3)
+    ref = _Node(_ref_dest(cfg), RefServer, HostRuntime, TCPChannel)
+    port = _Node(_port_dest(tcfg), TCPServer, HostRuntime, TCPChannel)
+    try:
+        tparams = from_numpy_tree(params, "cpu")
+        got = _drive_family(ref.host, fp, tparams, toks, extra)
+        want = _drive_family(port.host, fp, tparams, toks, extra)
+        assert ref.host.has_model(fp)
+        for a, b in zip(got, want):
+            assert a.shape == b.shape and a.dtype == b.dtype == np.float32
+            np.testing.assert_allclose(a, b, atol=TOL, rtol=TOL)
+    finally:
+        ref.close()
+        port.close()

@@ -197,7 +197,14 @@ def test_init_params_shapes_dtypes_scales_match_reference():
     assert all(torch.equal(x, y) for x, y in zip(tree_leaves(port), tree_leaves(again)))
 
 
-def test_non_dense_families_raise():
-    for arch in ["jamba-1.5-large-398b", "moonshot-v1-16b-a3b", "whisper-medium"]:
-        with pytest.raises(NotImplementedError):
-            TM.param_specs(tconfigs.reduced(tconfigs.get_arch(arch)))
+@pytest.mark.parametrize("arch", ["whisper-medium", "mamba2-130m", "moonshot-v1-16b-a3b",
+                                  "arctic-480b", "llama-3.2-vision-90b", "jamba-1.5-large-398b"])
+def test_other_families_param_tree_matches_reference(arch):
+    """Every family builds, at full size: the port's parameter tree has the
+    reference's paths, shapes and dtypes (meta tensors, no storage)."""
+    ref = RM.abstract_params(get_arch(arch))
+    port = TM.abstract_params(tconfigs.get_arch(arch))
+    rl, pl_ = jax.tree_util.tree_leaves_with_path(ref), tree_leaves_with_path(port)
+    assert [jax.tree_util.keystr(p) for p, _ in rl] == [keystr(p) for p, _ in pl_]
+    for (_, a), (_, b) in zip(rl, pl_):
+        assert tuple(b.shape) == a.shape and str(b.dtype) == f"torch.{a.dtype}"

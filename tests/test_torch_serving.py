@@ -1,6 +1,10 @@
 """The port's continuous-batching engine against the JAX package's, at
 reduced granite-3-2b and mamba2-130m (float32, on the CPU), with weights
-from ``repro.models.model.init_params`` fed to both packages.
+from ``repro.models.model.init_params`` fed to both packages; then the
+other decoder families: jamba (a hybrid block's mixed KV and conv/SSM
+caches spliced into slots), moonshot (MoE under global dispatch: the slots'
+tokens share expert capacity) and llama-3.2-vision (``context_fn``: each
+request's vision rows, its cross-attention keys and values spliced in).
 
 Against the reference, a few prompts of ONE length (so JAX compiles the
 engine's prefill once): the greedy tokens of both engines and of the port's
@@ -70,6 +74,56 @@ def test_continuous_batching_matches_sequential_on_ragged_prompts(arch):
         assert r.done and len(out[r.rid]) == r.max_new_tokens
         assert out[r.rid] == generate_sequential(tcfg, params, r.prompt, r.max_new_tokens,
                                                  max_len=64, device="cpu"), (name, r.rid)
+
+
+FAMILIES = ["jamba-1.5-large-398b", "moonshot-v1-16b-a3b", "llama-3.2-vision-90b"]
+
+
+@pytest.mark.parametrize("name", FAMILIES)
+def test_other_families_engine_tokens_equal_sequential_and_reference(name):
+    """Against the reference's engine: three prompts of one length through
+    two slots (one prefill compile there).  Against the port's
+    ``generate_sequential``: five ragged prompts through three slots.  The
+    cross gates are set non-zero (they are zeros at init).
+
+    The reference's engine hands ``context_fn``'s row to its prefill as it
+    is, where the model needs a batch axis, and stacks the rows with
+    unbatched zeros for empty slots at each tick; it runs only with
+    (1, Tv, d) rows and no empty slot at a tick.  So the vlm meets it with
+    two requests in two slots, finishing together, and its rows batched;
+    the port's engine takes (Tv, d) rows, as its ``generate_sequential``
+    and the reference's take a context."""
+    cfg = reduced(get_arch(name))
+    tcfg = tconfigs.reduced(tconfigs.get_arch(name))
+    params = jax.tree_util.tree_map_with_path(
+        lambda path, x: np.full(x.shape, 0.7, x.dtype)
+        if "cross_gate" in jax.tree_util.keystr(path) else np.asarray(x),
+        RM.init_params(cfg, jax.random.PRNGKey(0)))
+    rng = np.random.default_rng(2)
+    vision = {f"r{i}": (0.5 * rng.standard_normal((cfg.num_vision_tokens, cfg.d_model))
+                        ).astype(np.float32) for i in range(5)}
+    ctx = vision.__getitem__ if cfg.family == "vlm" else None
+
+    prompts = [rng.integers(0, cfg.vocab_size, 7).tolist() for _ in range(2 if ctx else 3)]
+    ref = RefEngine(cfg, params, max_batch=2, max_len=32,
+                    context_fn=ctx and (lambda rid: vision[rid][None]))
+    eng = ServingEngine(tcfg, params, max_batch=2, max_len=32, context_fn=ctx, device="cpu")
+    for i, p in enumerate(prompts):
+        ref.submit(RefRequest(f"r{i}", p, max_new_tokens=5))
+        eng.submit(Request(f"r{i}", p, max_new_tokens=5))
+    want, got = ref.run(), eng.run()
+    assert got == want and eng.steps == ref.steps, name
+
+    eng = ServingEngine(tcfg, params, max_batch=3, max_len=48, context_fn=ctx, device="cpu")
+    reqs = [Request(f"r{i}", rng.integers(0, cfg.vocab_size, rng.integers(3, 10)).tolist(),
+                    max_new_tokens=int(rng.integers(2, 7))) for i in range(5)]
+    for r in reqs:
+        eng.submit(r)
+    out = eng.run()
+    for r in reqs:
+        seq = generate_sequential(tcfg, params, r.prompt, r.max_new_tokens, max_len=48,
+                                  context=None if ctx is None else ctx(r.rid), device="cpu")
+        assert out[r.rid] == seq, (name, r.rid)
 
 
 def test_engine_respects_eos():
