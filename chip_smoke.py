@@ -24,7 +24,9 @@ Phases (any failed check exits non-zero):
    cross-attention, 64/8 heads of 128 over 1600 vision rows; whisper's, 16
    heads of 64 over 1500 frames), non-causal 1500 x 1500 (whisper's
    encoder), causal at 16/16 heads of 128 (moonshot; its engine's B 1
-   prefills at each prompt length) and 64/8 of 128; decode attention also
+   prefills at each prompt length) and 64/8 of 128, and phase 11's training
+   shapes (B 8, S 256: minicpm-2b's 36/36 heads of 64, moonshot's 16/16 of
+   128); decode attention also
    at B 8, a 4096-slot cache, kv_len on a split boundary and one past it, G 1
    and 8, and at kv_len 1600 and 1500 for every row (cross-attention), each
    attention kernel called twice for bit-identical output; time kernel, plain version
@@ -46,9 +48,10 @@ Phases (any failed check exits non-zero):
    (dequantize's yardstick ``torch.mul(q, scale)``, timed only; no single
    PyTorch call quantizes per row);
 3b. each kernel's ``torch.autograd.Function`` (rmsnorm, flash attention,
-   SSD scan) against the plain path at the training path's shapes, bf16 and
-   fp32, ragged lengths and head_dim 16: the forward output at the kernel's
-   phase-3 tolerance, and the gradients (the autograd plumbing);
+   SSD scan) against the plain path at the training paths' shapes (phase 7's
+   and phase 11's), bf16 and fp32, ragged lengths and head_dim 16: the
+   forward output at the kernel's phase-3 tolerance, and the gradients (the
+   autograd plumbing);
 4. a reduced granite-3-2b in float32 through the kernels on the card against
    the plain versions on the CPU (the CPU tests hold those against the JAX
    package), and prefill + decode against forward;
@@ -128,7 +131,28 @@ Phases (any failed check exits non-zero):
    cross gate set non-zero; 1600 bf16 vision rows with every call) and
    whisper-medium whole (24 + 24 layers; 1500 bf16 frames with the prefill
    and the score).  Phases print their wall time and, per call,
-   ``compute_s``, ``wire_s`` and the bytes sent.
+   ``compute_s``, ``wire_s`` and the bytes sent;
+11. the rest of training.  11a: the chunked cross-entropy at full width,
+   minicpm-2b whole (tied embeddings, 15 chunks of 8192) and
+   moonshot-v1-16b-a3b cut as in phase 10 (untied, 20 chunks), B 8, S 256
+   bf16: ``_xent_chunked`` on the card against the CPU on h taken from the
+   card (B 2, S 128; 1e-5 relative, loss and the gradient of h); then
+   ``loss_and_grads`` with ``xent_impl`` "full" and "chunked" from the same
+   params and batch: losses within 1e-4 relative, the embedding/head and
+   final norm gradients each within its limit (``XENT_GRAD_TOL``), exact
+   launch counts (rmsnorm 4L+1, flash 2L under remat), the loss head's peak
+   memory (forward and backward on the final hidden state) below the full
+   one's by at least one fp32 logits tensor and the step's peak not above
+   it, each call's device busy printed; phase 3 and 3b first hold rmsnorm
+   and flash at these models' widths and heads (``xent_kernel_shapes``);
+   one
+   ``make_train_step`` step with "chunked".  11b: ``python -m
+   repro_torch.launch.dryrun`` for granite-3-2b and moonshot-v1-16b-a3b at
+   train_4k on 256 fake ranks (no card), processes started before 11a:
+   each record ok, FLOPs counted, an all-reduce, ``argument_bytes`` equal
+   to the partition specs' arithmetic; the H100 roofline printed.  11c:
+   phase 7's step counted on the host mesh, its roofline beside phase 7's
+   measured device busy.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -170,6 +194,20 @@ HIDDEN_B, MAP_REQS = 8, 4
 # whisper-medium whole (24 + 24 layers).  Cross-attention contexts: 1600
 # vision rows, 1500 audio frames.
 MOONSHOT_LAYERS, VISION_LAYERS, CROSS_GATE = 4, 5, 0.5
+# phase 11a: the chunked cross-entropy at full width (minicpm-2b whole, tied;
+# moonshot cut as in phase 10, untied) at phase 7's batch, and the rows of
+# h taken from the card for the hold against the CPU
+XENT_ARCHS = (("minicpm-2b", None), ("moonshot-v1-16b-a3b", MOONSHOT_LAYERS))
+XENT_CHECK_B, XENT_CHECK_S = 2, 128
+# chunked against full (relative): the loss, and each gradient's max abs
+# error over its max.  Readings on the H100: losses 2.3e-6 and 5.2e-7; tok
+# (tied, minicpm-2b) 1.5e-2, head (moonshot) 2.1e-3, final norm 2.7e-4.  A
+# dropped chunk moves the loss by ~ln(15/14)/12 = 6e-3 and a gradient by
+# O(1), so these limits, about twice each reading, still catch it.
+XENT_LOSS_TOL = 1e-4
+XENT_GRAD_TOL = {"tok": 3e-2, "head": 5e-3, "final_norm": 1e-3}
+# phase 11b: the production dry-run's cells (train_4k, single pod, dp_tp)
+DRYRUN_ARCHS = ("granite-3-2b", "moonshot-v1-16b-a3b")
 VISION_T, AUDIO_F = 1600, 1500
 CROSS_LENS = (VISION_T, AUDIO_F)
 # phase 3 at the new paths' shapes (B, H, K, Sq, Sk, D), dtype, causal:
@@ -190,6 +228,26 @@ FAMILY_DECODE = [((MAIN_B, 8, 8, VISION_T, 128), torch.bfloat16, torch.bfloat16)
                  ((MAIN_B, 8, 8, CACHE_LEN, 128), torch.bfloat16, torch.bfloat16),
                  ((MAIN_B, 16, 1, CACHE_LEN, 64), torch.bfloat16, torch.bfloat16),
                  ((ENGINE_B, 16, 1, ENGINE_LEN, 128), torch.bfloat16, torch.float32)]
+
+
+def xent_kernel_shapes() -> tuple[list, list]:
+    """Phase 11a's kernel shapes, read from its models' configs so that a
+    model added to XENT_ARCHS brings its own: rmsnorm's ((B, S, d_model),
+    x dtype, scale dtype) and flash's ((B, H, K, S, S, D), dtype, causal),
+    at the training batch (B 8, S 256) and at the card-vs-CPU forward's
+    (B 2, S 128)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.layers import norm_specs
+
+    rms, flash = [], []
+    for arch, _ in XENT_ARCHS:
+        cfg = get_arch(arch)
+        dt = getattr(torch, cfg.compute_dtype)
+        sdt = norm_specs(cfg)["scale"].dtype or getattr(torch, cfg.param_dtype)
+        for B, S in ((TRAIN_B, TRAIN_S), (XENT_CHECK_B, XENT_CHECK_S)):
+            rms.append(((B, S, cfg.d_model), dt, sdt))
+            flash.append(((B, cfg.num_heads, cfg.num_kv_heads, S, S, cfg.head_dim), dt, True))
+    return rms, flash
 
 
 def engine_prompts(seed: int, vocab: int) -> dict:
@@ -290,6 +348,7 @@ def kernel_checks(gen, dev, engine_lens: dict) -> dict:
 
     bf16, f32 = torch.bfloat16, torch.float32
     main_err = {}
+    xent_rms, xent_flash = xent_kernel_shapes()
     print("phase 3: kernels vs plain versions on the card", flush=True)
     # rmsnorm: f32 atol 1e-5 (test_kernels.py); bf16 within one output ulp (rtol 1e-2).
     # granite-3-2b's shapes (also the training rows, and with a bf16 scale),
@@ -297,7 +356,7 @@ def kernel_checks(gen, dev, engine_lens: dict) -> dict:
     # norms on bf16 x with the bf16 scale, the gated norm on fp32 x (d_inner
     # 1536) with the fp32 scale, prefill and decode; then rows the vector
     # path does not take (off 16 bytes, D not a multiple of the vector),
-    # which run the kernel's scalar loop
+    # which run the kernel's scalar loop; then phase 11a's models' widths
     for shape, dt, sdt, skew in [
             ((MAIN_B, MAIN_S, 2048), bf16, f32, 0), ((MAIN_B, MAIN_S, 2048), f32, f32, 0),
             ((MAIN_B, 1, 2048), bf16, f32, 0), ((TRAIN_B, TRAIN_S, 2048), bf16, f32, 0),
@@ -307,7 +366,7 @@ def kernel_checks(gen, dev, engine_lens: dict) -> dict:
             ((MAIN_B, SSM_S, 1536), f32, f32, 0), ((MAIN_B, 1, 768), bf16, bf16, 0),
             ((MAIN_B, 1, 1536), f32, f32, 0), ((37, 512), f32, f32, 1),
             ((MAIN_B, MAIN_S, 2048), bf16, f32, 1), ((7, 13), bf16, bf16, 0),
-            ((9, 100), f32, f32, 3)]:
+            ((9, 100), f32, f32, 3), *[(sh, dt, sdt, 0) for sh, dt, sdt in xent_rms]]:
         # skew > 0: rows of a wider tensor from its element `skew` (off 16 bytes)
         x = randn(*shape[:-1], shape[-1] + skew, dtype=dt)[..., skew:]
         s = randn(shape[-1], dtype=sdt)
@@ -341,7 +400,7 @@ def kernel_checks(gen, dev, engine_lens: dict) -> dict:
             ((1, 4, 2, 37, 53, 64), f32, False), ((1, 4, 2, 37, 53, 64), bf16, True),
             ((1, 4, 2, 37, 53, 64), bf16, False), ((1, 4, 1, 19, 45, 16), bf16, True),
             ((1, 4, 1, 19, 45, 16), f32, True), ((1, 6, 2, 50, 70, 128), bf16, True),
-            *engine_cases, *hidden_cases, *FAMILY_FLASH]:
+            *engine_cases, *hidden_cases, *FAMILY_FLASH, *xent_flash]:
         q, k, v = randn(B, Sq, H, D, dtype=dt), randn(B, Sk, K, D, dtype=dt), randn(B, Sk, K, D, dtype=dt)
         got = ops.flash_attention(q, k, v, causal=causal)
         again = ops.flash_attention(q, k, v, causal=causal)
@@ -930,12 +989,17 @@ def grad_checks(gen, dev) -> None:
     def randn(*shape, dtype=f32):
         return torch.randn(*shape, generator=gen, device=dev).to(dtype)
 
-    # the scale in fp32, as the model's norm parameters are
-    for shape, dt in [((8, 256, 2048), bf16), ((8, 256, 2048), f32), ((3, 37, 16), f32)]:
-        compare(f"rmsnorm x {shape}", lambda x, s, impl: ops.rmsnorm(x, s, impl=impl),
-                [randn(*shape, dtype=dt), randn(shape[-1])], dt, "rmsnorm")
+    # the scale in fp32, as the model's norm parameters are; then phase 11a's
+    # models' norms and attention as their configs give them
+    xent_rms, xent_flash = xent_kernel_shapes()
+    for shape, dt, sdt in [((8, 256, 2048), bf16, f32), ((8, 256, 2048), f32, f32),
+                           ((3, 37, 16), f32, f32), *xent_rms]:
+        compare(f"rmsnorm x {shape} scale {sdt}", lambda x, s, impl: ops.rmsnorm(x, s, impl=impl),
+                [randn(*shape, dtype=dt), randn(shape[-1], dtype=sdt)], dt, "rmsnorm")
     for (B, H, K, S, D), dt in [((8, 32, 8, 256, 64), bf16), ((8, 32, 8, 256, 64), f32),
-                                ((2, 4, 2, 37, 16), f32), ((2, 4, 2, 37, 16), bf16)]:
+                                ((2, 4, 2, 37, 16), f32), ((2, 4, 2, 37, 16), bf16),
+                                *[((b, h, k, sq, d), dt) for (b, h, k, sq, _, d), dt, _
+                                  in xent_flash]]:
         compare(f"flash_attention B{B} H{H} K{K} S{S} D{D}",
                 lambda q, k, v, impl: ops.flash_attention(q, k, v, impl=impl),
                 [randn(B, S, H, D, dtype=dt), randn(B, S, K, D, dtype=dt),
@@ -1328,8 +1392,12 @@ def train_path(seed: int, dev, profile: bool = False) -> dict:
              for i in range(2)]
     print(f"  train step wall (host clock, synchronized): "
           f"{', '.join(f'{w * 1e3:.1f} ms' for w in walls)}", flush=True)
+    batch = data.batch(TRAIN_STEPS + 2)
+    wall_ms, kernels, _ = device_events(lambda: step_fn(params, opt, batch, TRAIN_STEPS + 2))
+    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    print(f"  one train step traced: device busy {busy_ms:.3f} ms of "
+          f"{wall_ms:.3f} ms wall", flush=True)
     if profile:
-        batch = data.batch(TRAIN_STEPS + 2)
         profile_call("granite-3-2b train step",
                      lambda: step_fn(params, opt, batch, TRAIN_STEPS + 2))
     peaks["train steps"] = peak_and_reset()
@@ -1408,7 +1476,7 @@ def train_path(seed: int, dev, profile: bool = False) -> dict:
     print(f"  peak device memory (torch.cuda.max_memory_allocated): "
           f"{', '.join(f'{k} {v / 1e9:.2f} GB' for k, v in peaks.items())}", flush=True)
     torch.cuda.empty_cache()
-    return {k: sum(c[k] for c in counts.values()) for k in counts["trainer"]}
+    return {k: sum(c[k] for c in counts.values()) for k in counts["trainer"]}, busy_ms
 
 
 # ---------------------------------------------------------------------------
@@ -2205,6 +2273,306 @@ def families_path(seed: int, dev, profile: bool = False) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the rest of training -- the chunked cross-entropy, the production
+# dry-run, the roofline of phase 7's step
+# ---------------------------------------------------------------------------
+
+def rel_err(a, b) -> float:
+    """max |a - b| over max |b|."""
+    return max_err(a, b) / max(b.float().abs().max().item(), 1e-30)
+
+
+def xent_and_grad_h(cfg, W, h, targets):
+    """``_xent_chunked`` on h and the embedding/head W -> (loss, its
+    gradient with respect to h)."""
+    from repro_torch.models import model as M
+
+    h = h.detach().requires_grad_()
+    key = "tok" if cfg.tie_embeddings else "head"
+    loss = M._xent_chunked(cfg, {"embed": {key: W}}, h, targets)
+    return loss.detach(), torch.autograd.grad(loss, h)[0]
+
+
+def fresh_peak() -> int:
+    """Collect garbage (earlier phases' cycles may hold device tensors),
+    reset the peak and -> the bytes allocated now."""
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def xent_path(seed: int, dev) -> dict:
+    """11a: ``xent_impl`` "chunked" against "full" at full width: minicpm-2b
+    whole (tied) and moonshot-v1-16b-a3b cut to MOONSHOT_LAYERS (untied), B 8,
+    S 256 bf16.  The chunked function on the card against the same function
+    on the CPU (h taken from the card at B 2, S 128, in fp32: 1e-5 relative,
+    loss and the gradient of h); ``loss_and_grads`` each way from the same
+    params and batch (losses within XENT_LOSS_TOL: "full" forms bf16 logits,
+    "chunked" fp32; the embedding/head's and the final norm's gradients
+    within XENT_GRAD_TOL of each other; exact launch counts; each call's
+    device busy printed).
+    Peak memory above each call's start, after collecting garbage: the loss
+    head alone (the cross-entropy's forward and backward on the final hidden
+    state) must save at least one fp32 logits tensor chunked, and the whole
+    step's peak must not rise (under remat it is the gradients at the end
+    of the backward, not the logits).  Then one ``make_train_step`` step
+    with "chunked".  -> the launch counts of the held runs and the step."""
+    from repro_torch.configs import get_arch, with_overrides
+    from repro_torch.data.pipeline import make_pipeline
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.optim.optimizer import OptimizerConfig, init_opt_state
+    from repro_torch.train.steps import loss_and_grads, make_train_step
+
+    total: dict = {}
+    for arch, layers in XENT_ARCHS:
+        cfg = get_arch(arch)
+        if layers:
+            cfg = with_overrides(cfg, num_layers=layers)
+        L, Vp, ck = cfg.num_layers, cfg.padded_vocab, cfg.xent_chunk
+        key = "tok" if cfg.tie_embeddings else "head"
+        cut = f" of {get_arch(arch).num_layers}" if layers else ""
+        print(f"phase 11a: chunked cross-entropy, {cfg.name} at full width ({L} layers{cut}, "
+              f"{model_line(cfg)}, {'tied' if cfg.tie_embeddings else 'untied'} embeddings, "
+              f"{Vp // ck} chunks of {ck}), B {TRAIN_B} S {TRAIN_S}, remat={cfg.remat}",
+              flush=True)
+        torch.cuda.empty_cache()
+        params = M.init_params(cfg, seed, dev)
+        data = make_pipeline(cfg.vocab_size, TRAIN_S, TRAIN_B, seed=seed)
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in data.batch(0).items()}
+
+        # the chunked function on the card against the CPU, on h from the card
+        small = {k: v[:XENT_CHECK_B, :XENT_CHECK_S] for k, v in batch.items()}
+        ops.reset_launch_counts()
+        with torch.no_grad():
+            h = M.forward_hidden(cfg, params, small)[0].float()
+        add_counts(total, all_counts())
+        W = params["embed"][key]
+        loss_d, dh_d = xent_and_grad_h(cfg, W, h, small["targets"])
+        t0 = time.perf_counter()
+        loss_h, dh_h = xent_and_grad_h(cfg, W.cpu(), h.cpu(), small["targets"].cpu())
+        el, eg = abs(loss_d.item() - loss_h.item()) / abs(loss_h.item()), rel_err(dh_d.cpu(), dh_h)
+        check(el <= 1e-5 and eg <= 1e-5,
+              f"_xent_chunked on the card vs the CPU at B {XENT_CHECK_B} S {XENT_CHECK_S}: loss "
+              f"{loss_d.item():.6f} / {loss_h.item():.6f} (rel {el:.1e}), grad of h rel {eg:.1e} "
+              f"(tol 1e-5; CPU {time.perf_counter() - t0:.1f} s)")
+        del h, dh_d, dh_h
+
+        # full against chunked from the same params and batch: the step, and
+        # the loss head alone on the final hidden state
+        ops.reset_launch_counts()
+        with torch.no_grad():
+            h = M.forward_hidden(cfg, params, batch)[0]
+        add_counts(total, all_counts())
+        res = {}
+        for impl in ("full", "chunked"):
+            c = with_overrides(cfg, xent_impl=impl)
+            base = fresh_peak()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            loss, _, grads = loss_and_grads(c, params, batch)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts, step_peak = all_counts(), torch.cuda.max_memory_allocated() - base
+            add_counts(total, counts)
+            kept = {key: grads["embed"][key].cpu(), "final_norm": grads["final_norm"]["scale"].cpu()}
+            del grads
+            base = fresh_peak()
+            hh, w = h.detach().requires_grad_(), W.detach().requires_grad_()
+            head = getattr(M, f"_xent_{impl}")(c, {"embed": {key: w}}, hh, batch["targets"])
+            torch.autograd.grad(head, [hh, w])
+            torch.cuda.synchronize()
+            head_peak = torch.cuda.max_memory_allocated() - base
+            del hh, w, head
+            _, kernels, _ = device_events(lambda c=c: loss_and_grads(c, params, batch))
+            busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+            res[impl] = {"loss": loss.item(), "grads": kept, "step": step_peak, "head": head_peak,
+                         "busy": busy}
+            want = expected_train_counts(cfg)
+            print(f"  {impl:7s}: loss {loss.item():.6f}; peak memory above the start: the step "
+                  f"{step_peak / 1e9:.3f} GB, the loss head (forward and backward on the final "
+                  f"hidden state) {head_peak / 1e9:.3f} GB; device busy {busy:.3f} ms, wall "
+                  f"{wall * 1e3:.1f} ms (first call); launches rmsnorm {counts['rmsnorm']}, flash "
+                  f"{counts['flash_attention']}", flush=True)
+            check(counts == want, f"{impl}: launch counts rmsnorm 4L+1 = {want['rmsnorm']} and "
+                                  f"flash 2L = {want['flash_attention']} (forward and remat)")
+        del h
+        full, chk = res["full"], res["chunked"]
+        el = abs(chk["loss"] - full["loss"]) / abs(full["loss"])
+        check(el <= XENT_LOSS_TOL, f"chunked loss {chk['loss']:.6f} vs full {full['loss']:.6f}: "
+                                   f"rel {el:.2e} (tol {XENT_LOSS_TOL:g}: bf16 against fp32 logits)")
+        for name in (key, "final_norm"):
+            a, b = chk["grads"][name], full["grads"][name]
+            e, tol = rel_err(a, b), XENT_GRAD_TOL[name]
+            check(a.shape == b.shape and a.dtype == b.dtype and bool(torch.isfinite(a).all())
+                  and e <= tol, f"grad of {name} {tuple(a.shape)} {a.dtype}: chunked vs full rel "
+                                f"max err {e:.3e} (tol {tol:g}), finite")
+        logits = TRAIN_B * TRAIN_S * Vp * 4
+        saved = full["head"] - chk["head"]
+        check(saved >= logits and chk["step"] <= full["step"],
+              f"loss head: chunked {chk['head'] / 1e9:.3f} GB below full {full['head'] / 1e9:.3f} "
+              f"GB by {saved / 1e9:.3f} GB >= one fp32 logits tensor ({logits / 1e9:.3f} GB); the "
+              f"step's peak {chk['step'] / 1e9:.3f} GB chunked <= {full['step'] / 1e9:.3f} GB full "
+              f"(under remat it is set by the gradients at the end of the backward)")
+        print(f"  device busy chunked / full: {chk['busy'] / full['busy']:.3f}", flush=True)
+        del res, full, chk
+
+        # one train step with the chunked cross-entropy
+        ocfg = OptimizerConfig(name=cfg.optimizer, lr=3e-4, warmup_steps=2, total_steps=100)
+        opt = init_opt_state(ocfg, params)
+        step = make_train_step(with_overrides(cfg, xent_impl="chunked"), ocfg)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        _, _, m = step(params, opt, data.batch(1), 0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = all_counts()
+        add_counts(total, counts)
+        check(counts == expected_train_counts(cfg) and np.isfinite(m["loss"].item())
+              and np.isfinite(m["grad_norm"].item())
+              and all(bool(torch.isfinite(p).all()) for p in (params["final_norm"]["scale"],
+                                                             params["embed"][key])),
+              f"make_train_step (chunked, {cfg.optimizer}): loss {m['loss'].item():.6f}, "
+              f"grad_norm {m['grad_norm'].item():.4f}, {wall * 1e3:.1f} ms, launch counts "
+              f"exact, params finite")
+        del opt, params, step, batch
+        torch.cuda.empty_cache()
+    return total
+
+
+def start_dryruns(root: Path, out_dir: str) -> dict:
+    """11b and 11c's dry-runs, each a process of its own on the host CPU
+    (no card for the production mesh: fake ranks), started before 11a so
+    that they run while it does."""
+    import os
+
+    env = {**os.environ, "PYTHONPATH": str(root / "src")}
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--shape", "train_4k",
+           "--out", out_dir]
+    runs = {arch: cmd + ["--arch", arch, "--mesh", "single", "--profile", "dp_tp"]
+            for arch in DRYRUN_ARCHS}
+    runs["host"] = cmd + ["--arch", "granite-3-2b", "--mesh", "host", "--global-batch",
+                          str(TRAIN_B), "--seq-len", str(TRAIN_S), "--tag", "phase7"]
+    procs = {}
+    for name, argv in runs.items():
+        log = open(os.path.join(out_dir, f"{name}.log"), "w")
+        procs[name] = (subprocess.Popen(argv, cwd=root, env=env, stdout=log,
+                                        stderr=subprocess.STDOUT), log)
+    return procs
+
+
+def shard_bytes(cfg, shape, mesh, profile: str) -> int:
+    """One device's bytes of a train cell's params, AdamW state and batch,
+    from the partition specs' arithmetic alone (no DTensor)."""
+    import math
+
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.models import model as M
+    from repro_torch.models.params import is_spec
+    from repro_torch.optim.optimizer import OptimizerConfig, opt_state_specs
+    from repro_torch.utils import tree_leaves
+
+    def local(shape_, pspec, itemsize):
+        names = [n for e in pspec if e for n in (e if isinstance(e, tuple) else (e,))]
+        return math.prod(shape_) // math.prod(mesh.shape[n] for n in names) * itemsize
+
+    specs = M.param_specs(cfg)
+    pdt = getattr(torch, cfg.param_dtype)
+    total = 0
+    for tree in (specs, opt_state_specs(OptimizerConfig(name=cfg.optimizer), specs)):
+        total += sum(local(s.shape, sh.spec_to_pspec(mesh, s, profile),
+                           (s.dtype or pdt).itemsize) for s in tree_leaves(tree, is_spec))
+    for leaf in M.input_specs(cfg, shape).values():
+        total += local(leaf.shape, sh.batch_pspec(mesh, leaf.shape[0], leaf.ndim),
+                       leaf.element_size())
+    return total
+
+
+def wait_dryrun(procs: dict, name: str, out_dir: str, record: str) -> dict:
+    import os
+
+    proc, log = procs[name]
+    proc.wait(timeout=900)
+    log.close()
+    with open(log.name) as f:
+        tail = f.read()[-3000:]
+    path = os.path.join(out_dir, record)
+    rec = json.load(open(path)) if os.path.exists(path) else {"ok": False}
+    check(proc.returncode == 0 and rec["ok"],
+          f"dry-run {record}: exit {proc.returncode}, ok {rec['ok']}"
+          + ("" if rec["ok"] else f" ({rec.get('error')}; log tail {tail!r})"))
+    return rec
+
+
+def dryrun_path(procs: dict, out_dir: str, train_busy_ms: float) -> None:
+    """11b: the production dry-run of granite-3-2b and moonshot-v1-16b-a3b
+    at train_4k (256 fake ranks, (16, 16), dp_tp): each record ok, FLOPs
+    counted, an all-reduce among the collectives, ``argument_bytes`` equal
+    to the partition specs' arithmetic; the roofline printed.  11c: phase
+    7's step (granite-3-2b, B 8, S 256) counted on the host mesh, its
+    roofline beside phase 7's measured device busy."""
+    from types import SimpleNamespace
+
+    from repro_torch.configs import SHAPES, get_arch
+
+    mesh = SimpleNamespace(axis_names=("data", "model"), shape={"data": 16, "model": 16})
+    print("phase 11b: the production dry-run, train_4k on 256 fake ranks (16 x 16, dp_tp), "
+          "no card", flush=True)
+    for arch in DRYRUN_ARCHS:
+        rec = wait_dryrun(procs, arch, out_dir, f"{arch}__train_4k__single.json")
+        roof, ma = rec["roofline"], rec["memory_analysis"]
+        coll = rec["collectives"]
+        want = shard_bytes(get_arch(arch), SHAPES["train_4k"], mesh, "dp_tp")
+        print(f"  {arch}: compute_s {roof['compute_s']:.6f}, memory_s {roof['memory_s']:.6f}, "
+              f"collective_s {roof['collective_s']:.6f}, dominant {roof['dominant']}, "
+              f"useful_ratio {roof['useful_ratio']:.4f}; FLOPs/device "
+              f"{roof['flops_per_device']:.4e}, bytes/device {roof['bytes_per_device']:.4e}; "
+              f"collectives {json.dumps(coll)}; built {rec['compile_s']:.1f} s, counted "
+              f"{rec['cost_compile_s']:.1f} s", flush=True)
+        check(roof["flops_per_device"] > 0 and "all-reduce" in coll,
+              f"{arch}: FLOPs counted, {coll.get('all-reduce', {}).get('count', 0)} all-reduces")
+        check(ma["argument_bytes"] == want,
+              f"{arch}: argument_bytes {ma['argument_bytes']} == the local shards' sum from the "
+              f"partition specs ({want / 1e9:.3f} GB a device)")
+    print("phase 11c: phase 7's step (granite-3-2b, B 8, S 256) counted on the host mesh, "
+          "H100 roofline", flush=True)
+    rec = wait_dryrun(procs, "host", out_dir, "granite-3-2b__train_4k__host__phase7.json")
+    roof = rec["roofline"]
+    check(roof["flops_per_device"] > 0, f"FLOPs {roof['flops_per_device']:.4e}, bytes "
+                                        f"{roof['bytes_per_device']:.4e}, 6ND "
+                                        f"{roof['model_flops']:.4e}")
+    print(f"  compute_s {roof['compute_s'] * 1e3:.3f} ms, memory_s {roof['memory_s'] * 1e3:.3f} "
+          f"ms, dominant {roof['dominant']}; phase 7's measured device busy "
+          f"{train_busy_ms:.3f} ms a step (counted in {rec['cost_compile_s']:.1f} s)",
+          flush=True)
+
+
+def training_rest_path(seed: int, dev, train_busy_ms: float) -> dict:
+    """Phase 11: the dry-runs start as processes, 11a runs on the card, then
+    11b and 11c read the dry-runs' records.  -> 11a's launch counts."""
+    import tempfile
+
+    root = Path(__file__).resolve().parent
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dryrun_") as out_dir:
+        procs = start_dryruns(root, out_dir)
+        try:
+            counts = timed("11a", xent_path, seed, dev)
+            timed("11b/c", dryrun_path, procs, out_dir, train_busy_ms)
+        finally:
+            for proc, log in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+                log.close()
+    return counts
+
+
 def timed(phase: str, fn, *args, **kwargs):
     """``fn(*args, **kwargs)``, printing the phase's wall time."""
     t0 = time.perf_counter()
@@ -2319,13 +2687,14 @@ def main(argv=None) -> int:
     print(f"  phase 4 wall {time.perf_counter() - t0:.1f} s", flush=True)
     granite, served = timed("5", main_path, "5", "granite-3-2b", MAIN_S, args.seed, dev,
                             profile=args.profile)
-    paths = [granite,
-             timed("6", main_path, "6", "mamba2-130m", SSM_S, args.seed, dev,
-                   profile=args.profile)[0],
-             timed("7", train_path, args.seed, dev, profile=args.profile),
-             timed("8", openpose_path, args.seed, dev, profile=args.profile),
-             timed("9", frontdoor_path, args.seed, dev, served, profile=args.profile),
-             families_path(args.seed, dev, profile=args.profile)]
+    paths = [granite, timed("6", main_path, "6", "mamba2-130m", SSM_S, args.seed, dev,
+                            profile=args.profile)[0]]
+    train_counts, train_busy_ms = timed("7", train_path, args.seed, dev, profile=args.profile)
+    paths += [train_counts,
+              timed("8", openpose_path, args.seed, dev, profile=args.profile),
+              timed("9", frontdoor_path, args.seed, dev, served, profile=args.profile),
+              families_path(args.seed, dev, profile=args.profile),
+              training_rest_path(args.seed, dev, train_busy_ms)]
     counts = {name: sum(p[name] for p in paths) for name in paths[0]}   # every main path's
 
     replaces = {"rmsnorm": "src/repro/kernels/rmsnorm.py:22",

@@ -6,7 +6,9 @@ CUDA tensor goes to the hand-written kernel, which launches or raises; a
 CPU tensor goes to the plain version in ``kernels/ref.py``.  There is no
 fallback from CUDA to the plain version.  Checks that hold a kernel against
 its plain version on the card force the plain one with ``impl="ref"`` or
-:func:`force_impl`; the main path never does.  Each kernel module holds the
+:func:`force_impl`; the main path never does.  A DTensor (the dry-run's) runs
+attention shard by shard (``distributed/dtensor.py``), each shard through
+this same dispatch.  Each kernel module holds the
 CUDA wrapper (``*_cuda``, which counts its launches) and the plain version
 (``*_plain``, from ``kernels/ref.py``).  Where autograd records the call
 (an input requires grad), ``rmsnorm``, ``flash_attention`` and ``ssd_scan``
@@ -16,9 +18,11 @@ forward through the kernel, backward through the recomputed plain version.
 from __future__ import annotations
 
 import contextlib
+from functools import partial
 
 import torch
 
+from repro_torch.distributed.dtensor import attention_per_shard, is_dtensor
 from repro_torch.kernels import comm_quant as _cq
 from repro_torch.kernels import decode_attention as _dec
 from repro_torch.kernels import flash_attention as _fa
@@ -84,7 +88,10 @@ def reset_launch_counts() -> None:
 # ---------------------------------------------------------------------------
 
 def flash_attention(q, k, v, *, causal: bool = True, impl: str | None = None):
-    """Model layout q: (B,S,H,D), k/v: (B,T,K,D) -> (B,S,H,D)."""
+    """Model layout q: (B,S,H,D), k/v: (B,T,K,D) -> (B,S,H,D).  A DTensor
+    goes shard by shard, each shard through this dispatch."""
+    if is_dtensor(q):
+        return attention_per_shard(partial(flash_attention, causal=causal, impl=impl), q, k, v)
     if not _use_kernel(q, impl):
         return _flash_plain(q, k, v, causal=causal)
     if needs_grad(q, k, v):
@@ -105,7 +112,10 @@ def _flash_kernel(q, k, v, *, causal):
 
 
 def decode_attention(q, k, v, kv_len, *, impl: str | None = None):
-    """Model layout q: (B,1,H,D), k/v: (B,S,K,D), kv_len (B,) -> (B,1,H,D)."""
+    """Model layout q: (B,1,H,D), k/v: (B,S,K,D), kv_len (B,) -> (B,1,H,D).
+    A DTensor goes shard by shard, each shard through this dispatch."""
+    if is_dtensor(q):
+        return attention_per_shard(partial(decode_attention, impl=impl), q, k, v, kv_len)
     B, _, H, D = q.shape
     K = k.shape[2]
     qt = q.reshape(B, K, H // K, D)

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed.dtensor import index_copy_
 from repro_torch.kernels import ops
 from repro_torch.models.layers import apply_rope
 from repro_torch.models.params import ParamSpec
@@ -127,8 +128,8 @@ def self_attention_decode(cfg, p, x, cache, pos, *, rope: bool = True):
         kc[rows, idx] = torch.where(keep, k_new[:, 0].to(kc.dtype), kc[rows, idx])
         vc[rows, idx] = torch.where(keep, v_new[:, 0].to(vc.dtype), vc[rows, idx])
     else:
-        kc.index_copy_(1, idx.reshape(1), k_new.to(kc.dtype))
-        vc.index_copy_(1, idx.reshape(1), v_new.to(vc.dtype))
+        index_copy_(kc, 1, idx.reshape(1), k_new.to(kc.dtype))
+        index_copy_(vc, 1, idx.reshape(1), v_new.to(vc.dtype))
     kv_len = (pos + 1).clamp(max=S_max).to(torch.int32).expand(B).contiguous()
     o = ops.decode_attention(q, kc, vc, kv_len)
     return _out_proj(p, o), {"k": kc, "v": vc}

@@ -23,6 +23,7 @@ from repro_torch.models.layers import apply_norm, norm_specs
 from repro_torch.models.mlp import apply_mlp, mlp_specs
 from repro_torch.models.moe import apply_moe, moe_specs
 from repro_torch.models.params import ParamSpec
+from repro_torch.utils import tree_map
 
 
 def block_size(cfg) -> int:
@@ -86,6 +87,13 @@ def _layer_cache(cfg, i: int, batch: int, max_len: int, dtype, device,
     return cache
 
 
+def block_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16, device="cuda",
+                cross_dtype=None) -> dict:
+    """One block's cache: a dict per layer of the block."""
+    return {"layers": [_layer_cache(cfg, j, batch, max_len, dtype, device, cross_dtype)
+                       for j in range(block_size(cfg))]}
+
+
 def stacked_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
                   device="cuda", cross_dtype=None) -> dict:
     """Cache stacked over blocks (leading dim = num_blocks): k/v
@@ -93,12 +101,15 @@ def stacked_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
     (nb, B, ck-1, conv_dim) in ``dtype`` (the cross leaves in
     ``cross_dtype`` if given); ssm (nb, B, H, P, N) fp32."""
     nb = num_blocks(cfg)
-    layers = []
-    for j in range(block_size(cfg)):
-        one = _layer_cache(cfg, j, batch, max_len, dtype, "meta", cross_dtype)
-        layers.append({k: torch.zeros((nb, *v.shape), dtype=v.dtype, device=device)
-                       for k, v in one.items()})
-    return {"layers": layers}
+    one = block_cache(cfg, batch, max_len, dtype, "meta", cross_dtype)
+    return tree_map(lambda v: torch.zeros((nb, *v.shape), dtype=v.dtype, device=device), one)
+
+
+def zeros_like_h(template, h):
+    """The zero tree shaped as ``template`` (meta tensors), made by
+    ``h.new_zeros``: on h's device, and a DTensor (replicated) when h is
+    one (the dry-run's prefill writes its cache shard by shard)."""
+    return tree_map(lambda t: h.new_zeros(t.shape, dtype=t.dtype), template)
 
 
 def decode_cache(cfg, cache: dict, dtype) -> dict:

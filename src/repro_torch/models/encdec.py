@@ -16,6 +16,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn
+from repro_torch.models.blocks import zeros_like_h
 from repro_torch.models.layers import (apply_norm, embed_specs, embed_tokens, norm_specs,
                                        sinusoidal_at, sinusoidal_positions)
 from repro_torch.models.mlp import apply_mlp, mlp_specs
@@ -109,8 +110,8 @@ def dec_prefill(cfg, params, tokens, enc_out, cache_len: int, cache_dtype=torch.
     B, S = tokens.shape
     positions = _positions(tokens)
     h = _embed_dec(cfg, params, tokens, positions)
-    cache = encdec_init_cache(cfg, B, cache_len, h.dtype, h.device, cross_dtype=enc_out.dtype,
-                              frames=enc_out.shape[1])
+    cache = zeros_like_h(encdec_init_cache(cfg, B, cache_len, h.dtype, "meta",
+                                           cross_dtype=enc_out.dtype, frames=enc_out.shape[1]), h)
     for p, c in zip(_unstack(params["dec_blocks"]), _unstack(cache)):
         n = apply_norm(cfg, p["mixer_norm"], h)
         mix, _ = attn.self_attention_prefill(cfg, p["attn"], n, positions, c, rope=False)

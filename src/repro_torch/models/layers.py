@@ -3,6 +3,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed.dtensor import embed_per_shard, is_dtensor
 from repro_torch.kernels import ops
 from repro_torch.models.params import ParamSpec
 
@@ -46,7 +47,10 @@ def embed_specs(cfg) -> dict:
 
 
 def embed_tokens(cfg, p, tokens):
-    return p["tok"][tokens.long()].to(getattr(torch, cfg.compute_dtype))
+    dt = getattr(torch, cfg.compute_dtype)
+    if is_dtensor(tokens):
+        return embed_per_shard(p["tok"], tokens).to(dt)
+    return p["tok"][tokens.long()].to(dt)
 
 
 def unembed(cfg, p, h):
@@ -56,9 +60,11 @@ def unembed(cfg, p, h):
         logits = h @ p["tok"].to(h.dtype).T
     else:
         logits = h @ p["head"].to(h.dtype)
+    pad = torch.arange(cfg.padded_vocab, device=logits.device) >= cfg.vocab_size
     logits = logits.float()
-    logits[..., cfg.vocab_size:] = NEG_INF
-    return logits
+    if is_dtensor(logits):          # DTensor has no in-place rule for a partial sum
+        return logits.masked_fill(pad, NEG_INF)
+    return logits.masked_fill_(pad, NEG_INF)     # in place: no second logits buffer
 
 
 # ---------------------------------------------------------------------------
@@ -100,6 +106,14 @@ def sinusoidal_positions(n: int, d: int, device=None):
 # ---------------------------------------------------------------------------
 # Linear helpers
 # ---------------------------------------------------------------------------
+
+def linear_specs(d_in: int, d_out: int, axes, *, bias: bool, scale=None) -> dict:
+    specs = {"w": ParamSpec((d_in, d_out), axes, "normal",
+                            scale if scale is not None else d_in ** -0.5)}
+    if bias:
+        specs["b"] = ParamSpec((d_out,), (axes[1],), "zeros")
+    return specs
+
 
 def apply_linear(p, x):
     y = x @ p["w"].to(x.dtype)

@@ -11,8 +11,9 @@ GEMMs; the combine weighted by the kept, renormalised probabilities.
 Two dispatch scopes, selected by ``cfg.moe_sharded_dispatch``: ``False``,
 one global group over all B*S tokens (G = 1; the rows of a batch compete
 for capacity), and ``True``, one group per batch row (G = B, capacity per
-row).  The reference's sharding hints (``_constrain``) have no counterpart:
-this package runs on one device.
+row).  Under grouped dispatch the reference's sharding hints
+(``_constrain``: groups over "data", experts over "model") redistribute the
+buffers when they are DTensors (the dry-run) and pass anything else.
 
 Two steps are written so that they give the same result on every call:
 
@@ -30,6 +31,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.dtensor import is_dtensor
 from repro_torch.models.mlp import apply_mlp, mlp_specs
 from repro_torch.models.params import ParamSpec
 
@@ -63,6 +65,23 @@ def _capacity(cfg, n_tokens: int) -> int:
     m = cfg.moe
     c = int(n_tokens * m.top_k / m.num_experts * m.capacity_factor)
     return max(8, -(-c // 8) * 8)
+
+
+def _constrain(x, *entries):
+    """The reference's sharding hint: a DTensor is redistributed to
+    ``PartitionSpec(*entries)`` on its own mesh; a plain tensor, or a spec
+    naming an axis the mesh lacks, passes unchanged (the reference's
+    fallback outside a mesh)."""
+    if not is_dtensor(x):
+        return x
+    from repro_torch.distributed.sharding import P, to_placements
+
+    mesh = x.device_mesh
+    try:
+        placements = to_placements(mesh, P(*entries))
+    except ValueError:
+        return x
+    return x.redistribute(mesh, placements)
 
 
 def route(cfg, xg, router):
@@ -103,7 +122,8 @@ def _apply_moe(cfg, p, x):
     C = _capacity(cfg, T)
     sort_idx = torch.argsort(flat_e, dim=-1, stable=True)
     sorted_e = flat_e.gather(-1, sort_idx)
-    starts = torch.cumsum(counts, dim=-1) - counts               # exclusive
+    # exclusive; kept int64 (a DTensor cumsum reports a float dtype)
+    starts = (torch.cumsum(counts, dim=-1) - counts).long()
     pos_in_e = torch.arange(T * k, device=dev)[None] - starts.gather(-1, sorted_e)
     keep = pos_in_e < C
     dest = sorted_e * C + torch.where(keep, pos_in_e, 0)         # (G,TK)
@@ -114,13 +134,17 @@ def _apply_moe(cfg, p, x):
     slot = torch.where(keep, group + dest, G * E * C)            # drops -> scratch row
     buf = xg.new_zeros(G * E * C + 1, d).index_put((slot.reshape(-1),), rows.reshape(-1, d))
     buf = buf[:-1].reshape(G, E, C, d)
+    if cfg.moe_sharded_dispatch:
+        buf = _constrain(buf, "data", "model", None, None)
 
     # --- per-expert SwiGLU (batched GEMMs over experts) ----------------------
     dt = buf.dtype
     be = buf.transpose(0, 1).reshape(E, G * C, d)                # (E, G*C, d)
     h = F.silu(torch.bmm(be, p["w_gate"].to(dt))) * torch.bmm(be, p["w_up"].to(dt))
-    out = torch.bmm(h, p["w_down"].to(dt))                       # (E, G*C, d)
-    out_flat = out.reshape(E, G, C, d).transpose(0, 1).reshape(G, E * C, d)
+    out = torch.bmm(h, p["w_down"].to(dt)).reshape(E, G, C, d).transpose(0, 1)
+    if cfg.moe_sharded_dispatch:
+        out = _constrain(out, "data", "model", None, None)
+    out_flat = out.reshape(G, E * C, d)
 
     # --- combine: back to token order, summed over k -------------------------
     w = (top_p.reshape(G, T * k).gather(-1, sort_idx) * keep).to(dt)   # (G,TK)

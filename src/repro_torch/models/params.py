@@ -93,3 +93,12 @@ def from_numpy_tree(tree: Any, device="cuda") -> Any:
     device = torch.device(device)
     return tree_map(lambda x: to_tensor(x, device)
                     if isinstance(x, (np.ndarray, np.generic, torch.Tensor)) else x, tree)
+
+
+def param_axes(specs):
+    """Tree of logical-axis tuples, mirroring the spec tree."""
+    return tree_map(lambda s: tuple(s.axes), specs, is_leaf=is_spec)
+
+
+def cast_tree(tree, dtype):
+    return tree_map(lambda x: x.to(dtype), tree)

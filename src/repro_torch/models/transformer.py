@@ -9,7 +9,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.blocks import (apply_block, block_specs, decode_cache, num_blocks,
-                                       stacked_cache)
+                                       stacked_cache, zeros_like_h)
 from repro_torch.models.layers import apply_norm, embed_specs, embed_tokens, norm_specs
 from repro_torch.models.params import stack_specs
 from repro_torch.utils import tree_flatten, tree_unflatten
@@ -85,8 +85,8 @@ def lm_prefill(cfg, params, tokens, cache_len: int, *, context=None,
     B, _ = tokens.shape
     positions = _positions(tokens)
     h = embed_tokens(cfg, params["embed"], tokens)
-    cache = stacked_cache(cfg, B, cache_len, h.dtype, h.device,
-                          None if context is None else context.dtype)
+    cache = zeros_like_h(stacked_cache(cfg, B, cache_len, h.dtype, "meta",
+                                       None if context is None else context.dtype), h)
     for bp, bc in zip(_unstack(params["blocks"]), _unstack(cache)):
         h, _, _ = apply_block(cfg, bp, h, positions=positions, mode="prefill", cache=bc,
                               context=context)

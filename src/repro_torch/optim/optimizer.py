@@ -11,7 +11,8 @@ objects: on full-width granite-3-2b a second copy of the AdamW moments
 would add 20 GB.  Gradient clipping is applied leaf by leaf inside the
 update, with the reference's rounding (the clipped gradient is cast back to
 its own dtype first), so no clipped copy of the whole gradient tree exists.
-``opt_state_specs`` (dry-run sharding) is not ported yet.
+``opt_state_specs`` gives the state's ``ParamSpec`` tree, from which the
+dry-run derives its shardings.
 """
 from __future__ import annotations
 
@@ -214,3 +215,29 @@ def apply_updates(ocfg: OptimizerConfig, grads, opt_state, params, step):
     else:
         raise ValueError(ocfg.name)
     return params, opt_state, {"grad_norm": gnorm, "lr": lr}
+
+
+def opt_state_specs(ocfg: OptimizerConfig, param_spec_tree):
+    """``ParamSpec`` tree of the optimizer state, mirroring
+    ``init_opt_state``'s structure, the logical axes carried over: AdamW's
+    fp32 ``m`` and ``v``; Adafactor's factored ``vr``/``vc`` where both
+    trailing dims reach ``factored_min_dim``, else ``v``."""
+    from repro_torch.models.params import ParamSpec, is_spec
+
+    def f32(s: ParamSpec) -> ParamSpec:
+        return ParamSpec(tuple(s.shape), tuple(s.axes), "zeros", dtype=F32)
+
+    if ocfg.name == "adamw":
+        return {"m": tree_map(f32, param_spec_tree, is_leaf=is_spec),
+                "v": tree_map(f32, param_spec_tree, is_leaf=is_spec)}
+
+    def adafactor(s: ParamSpec):
+        shape, axes = tuple(s.shape), tuple(s.axes)
+        if len(shape) >= 2 and shape[-1] >= ocfg.factored_min_dim \
+                and shape[-2] >= ocfg.factored_min_dim:
+            return {"vr": ParamSpec(shape[:-1], axes[:-1], "zeros", dtype=F32),
+                    "vc": ParamSpec(shape[:-2] + shape[-1:], axes[:-2] + axes[-1:], "zeros",
+                                    dtype=F32)}
+        return {"v": ParamSpec(shape, axes, "zeros", dtype=F32)}
+
+    return {"slots": tree_map(adafactor, param_spec_tree, is_leaf=is_spec)}

@@ -1,4 +1,5 @@
-"""Small shared utilities: tree helpers, the numpy <-> torch bridge, devices.
+"""Small shared utilities: tree helpers, the numpy <-> torch bridge, devices,
+formatting and deterministic hashing.
 
 Tree helpers follow ``jax.tree_util`` semantics so that both packages walk a
 parameter tree in the same order and name its leaves the same way:
@@ -16,8 +17,11 @@ dtype (the JAX package's host arrays) are accepted as they are.
 """
 from __future__ import annotations
 
+import hashlib
+import json
+import time
 import warnings
-from typing import Any, Callable, Optional
+from typing import Any, Callable, Iterable, Optional
 
 import numpy as np
 import torch
@@ -25,6 +29,17 @@ import torch
 
 def round_up(x: int, multiple: int) -> int:
     return ((x + multiple - 1) // multiple) * multiple
+
+
+def chunks(seq: Iterable, size: int):
+    buf = []
+    for item in seq:
+        buf.append(item)
+        if len(buf) == size:
+            yield buf
+            buf = []
+    if buf:
+        yield buf
 
 
 # ---------------------------------------------------------------------------
@@ -133,6 +148,14 @@ def tree_map(fn: Callable, tree: Any, *rest: Any,
     return tree_unflatten(treedef, mapped)
 
 
+def tree_map_with_path(fn: Callable, tree: Any, is_leaf: Optional[Callable] = None) -> Any:
+    """``fn(path, leaf)`` over the leaves of ``tree``
+    (``jax.tree_util.tree_map_with_path``; ``path`` as in
+    :func:`tree_flatten_with_path`)."""
+    flat, treedef = tree_flatten_with_path(tree, is_leaf)
+    return tree_unflatten(treedef, [fn(path, leaf) for path, leaf in flat])
+
+
 def keystr(path) -> str:
     """``jax.tree_util.keystr`` rendering: ``['a'][0]['b']``."""
     return "".join(f"[{k!r}]" for k in path)
@@ -217,3 +240,79 @@ def resolve_device(device="cuda") -> torch.device:
         raise RuntimeError("CUDA is not available; pass device='cpu' to run "
                            "on the CPU")
     return dev
+
+
+# ---------------------------------------------------------------------------
+# Sizes, formatting, hashing, checks (the reference's ``repro/utils.py``)
+# ---------------------------------------------------------------------------
+
+def _itemsize(leaf) -> int:
+    if isinstance(leaf, torch.Tensor):
+        return leaf.element_size()
+    return np.dtype(leaf.dtype).itemsize
+
+
+def tree_bytes(tree: Any) -> int:
+    """Total bytes of all array leaves: tensors on any device (``meta``
+    included) and host arrays (a :class:`BF16Array` counts 2 bytes)."""
+    return sum(int(np.prod(leaf.shape, dtype=np.int64)) * _itemsize(leaf)
+               for leaf in tree_leaves(tree)
+               if hasattr(leaf, "shape") and hasattr(leaf, "dtype"))
+
+
+def tree_params(tree: Any) -> int:
+    """Total element count of all array leaves."""
+    return sum(int(np.prod(leaf.shape, dtype=np.int64)) for leaf in tree_leaves(tree)
+               if hasattr(leaf, "shape"))
+
+
+def fmt_bytes(n: float) -> str:
+    for unit in ("B", "KiB", "MiB", "GiB", "TiB"):
+        if abs(n) < 1024.0:
+            return f"{n:.2f} {unit}"
+        n /= 1024.0
+    return f"{n:.2f} PiB"
+
+
+def fmt_count(n: float) -> str:
+    for unit in ("", "K", "M", "B", "T"):
+        if abs(n) < 1000.0:
+            return f"{n:.2f}{unit}"
+        n /= 1000.0
+    return f"{n:.2f}Q"
+
+
+def stable_hash(obj: Any) -> str:
+    """Deterministic content hash of a JSON-able object (or bytes)."""
+    if isinstance(obj, bytes):
+        payload = obj
+    else:
+        payload = json.dumps(obj, sort_keys=True, default=str).encode()
+    return hashlib.sha256(payload).hexdigest()[:16]
+
+
+def check_finite(tree: Any, name: str = "tree") -> None:
+    """Raise ``FloatingPointError`` naming the first leaf (tensor or host
+    array) that holds a NaN or an Inf."""
+    for path, leaf in tree_leaves_with_path(tree):
+        t = leaf if isinstance(leaf, torch.Tensor) else to_tensor(leaf, "cpu")
+        if not bool(torch.isfinite(t.float()).all()):
+            raise FloatingPointError(f"non-finite values in {name}{keystr(path)}")
+
+
+class Stopwatch:
+    """Wall-clock stopwatch with named laps."""
+
+    def __init__(self) -> None:
+        self.laps: dict[str, float] = {}
+        self._t0 = time.perf_counter()
+
+    def lap(self, name: str) -> float:
+        now = time.perf_counter()
+        dt = now - self._t0
+        self.laps[name] = self.laps.get(name, 0.0) + dt
+        self._t0 = now
+        return dt
+
+    def total(self) -> float:
+        return sum(self.laps.values())
