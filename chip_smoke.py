@@ -148,11 +148,24 @@ Phases (any failed check exits non-zero):
    one
    ``make_train_step`` step with "chunked".  11b: ``python -m
    repro_torch.launch.dryrun`` for granite-3-2b and moonshot-v1-16b-a3b at
-   train_4k on 256 fake ranks (no card), processes started before 11a:
-   each record ok, FLOPs counted, an all-reduce, ``argument_bytes`` equal
-   to the partition specs' arithmetic; the H100 roofline printed.  11c:
-   phase 7's step counted on the host mesh, its roofline beside phase 7's
-   measured device busy.
+   train_4k, and mamba2-130m and jamba-1.5-large-398b at train_4k,
+   prefill_32k and decode_32k (``DRYRUN_CELLS``; the SSM mixer per shard)
+   on 256 fake ranks (no card), processes started before 11a: each
+   record ok, FLOPs counted, an all-reduce, ``argument_bytes`` equal to the
+   partition specs' arithmetic; the H100 roofline printed.  11c: phase 7's
+   step counted on the host mesh, its roofline beside phase 7's measured
+   device busy;
+12. the example twins on the card, each printing its own lines under its
+   tag.  12a: ``repro_torch.examples.offload_serving`` at granite-3-2b's full
+   width (40 layers): two TCP destinations on the card through
+   ``avec.connect``, the weights sent once, B 4 prompts of 8 tokens, 16
+   decode steps, a ``map`` of 8 scores over both destinations; exact
+   rmsnorm, flash and decode launch counts, the profiler's compute_s /
+   wire_s split.  12b: ``repro_torch.examples.openpose_pipeline`` at
+   368x656, its destination a process of its own on the card: the loop
+   under ``client.intercept``, synchronous against pipelined (beliefs
+   bit-identical), Table IV.  12c: ``repro_torch.examples.quickstart`` at
+   its reduced default (granite-3-2b, 30 train steps, 3 requests served).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -206,8 +219,13 @@ XENT_CHECK_B, XENT_CHECK_S = 2, 128
 # O(1), so these limits, about twice each reading, still catch it.
 XENT_LOSS_TOL = 1e-4
 XENT_GRAD_TOL = {"tok": 3e-2, "head": 5e-3, "final_norm": 1e-3}
-# phase 11b: the production dry-run's cells (train_4k, single pod, dp_tp)
-DRYRUN_ARCHS = ("granite-3-2b", "moonshot-v1-16b-a3b")
+# phase 11b: the production dry-run's cells (single pod, dp_tp): the dense
+# and MoE train_4k, then the SSM and hybrid cells, whose mixer runs per shard
+DRYRUN_CELLS = (("granite-3-2b", "train_4k"), ("moonshot-v1-16b-a3b", "train_4k"),
+                *((arch, shape) for arch in ("mamba2-130m", "jamba-1.5-large-398b")
+                  for shape in ("train_4k", "prefill_32k", "decode_32k")))
+# phase 12: the example twins (offload_serving at this arch's full width)
+TWIN_ARCH = "granite-3-2b"
 VISION_T, AUDIO_F = 1600, 1500
 CROSS_LENS = (VISION_T, AUDIO_F)
 # phase 3 at the new paths' shapes (B, H, K, Sq, Sk, D), dtype, causal:
@@ -2453,12 +2471,13 @@ def start_dryruns(root: Path, out_dir: str) -> dict:
     import os
 
     env = {**os.environ, "PYTHONPATH": str(root / "src")}
-    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--shape", "train_4k",
-           "--out", out_dir]
-    runs = {arch: cmd + ["--arch", arch, "--mesh", "single", "--profile", "dp_tp"]
-            for arch in DRYRUN_ARCHS}
-    runs["host"] = cmd + ["--arch", "granite-3-2b", "--mesh", "host", "--global-batch",
-                          str(TRAIN_B), "--seq-len", str(TRAIN_S), "--tag", "phase7"]
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--out", out_dir]
+    runs = {f"{arch}__{shape}": cmd + ["--arch", arch, "--shape", shape, "--mesh", "single",
+                                       "--profile", "dp_tp"]
+            for arch, shape in DRYRUN_CELLS}
+    runs["host"] = cmd + ["--arch", "granite-3-2b", "--shape", "train_4k", "--mesh", "host",
+                          "--global-batch", str(TRAIN_B), "--seq-len", str(TRAIN_S),
+                          "--tag", "phase7"]
     procs = {}
     for name, argv in runs.items():
         log = open(os.path.join(out_dir, f"{name}.log"), "w")
@@ -2468,8 +2487,9 @@ def start_dryruns(root: Path, out_dir: str) -> dict:
 
 
 def shard_bytes(cfg, shape, mesh, profile: str) -> int:
-    """One device's bytes of a train cell's params, AdamW state and batch,
-    from the partition specs' arithmetic alone (no DTensor)."""
+    """One device's bytes of a cell's arguments from the partition specs'
+    arithmetic alone (no DTensor): the params, and the AdamW state for a
+    train cell or the cache for a decode cell, and the batch."""
     import math
 
     from repro_torch.distributed import sharding as sh
@@ -2484,13 +2504,18 @@ def shard_bytes(cfg, shape, mesh, profile: str) -> int:
 
     specs = M.param_specs(cfg)
     pdt = getattr(torch, cfg.param_dtype)
-    total = 0
-    for tree in (specs, opt_state_specs(OptimizerConfig(name=cfg.optimizer), specs)):
-        total += sum(local(s.shape, sh.spec_to_pspec(mesh, s, profile),
-                           (s.dtype or pdt).itemsize) for s in tree_leaves(tree, is_spec))
+    trees = [specs] + ([opt_state_specs(OptimizerConfig(name=cfg.optimizer), specs)]
+                       if shape.kind == "train" else [])
+    total = sum(local(s.shape, sh.spec_to_pspec(mesh, s, profile), (s.dtype or pdt).itemsize)
+                for tree in trees for s in tree_leaves(tree, is_spec))
+    if shape.kind == "decode":
+        cache = M.abstract_cache(cfg, shape.global_batch, shape.seq_len)
+        cache_sh = sh.cache_shardings(mesh, cfg, cache, shape.global_batch, profile)
+        total += sum(local(t.shape, c.spec, t.element_size())
+                     for t, c in zip(tree_leaves(cache), tree_leaves(cache_sh)))
     for leaf in M.input_specs(cfg, shape).values():
-        total += local(leaf.shape, sh.batch_pspec(mesh, leaf.shape[0], leaf.ndim),
-                       leaf.element_size())
+        pspec = sh.batch_pspec(mesh, leaf.shape[0], leaf.ndim) if leaf.ndim else ()
+        total += local(leaf.shape, pspec, leaf.element_size())
     return total
 
 
@@ -2511,10 +2536,12 @@ def wait_dryrun(procs: dict, name: str, out_dir: str, record: str) -> dict:
 
 
 def dryrun_path(procs: dict, out_dir: str, train_busy_ms: float) -> None:
-    """11b: the production dry-run of granite-3-2b and moonshot-v1-16b-a3b
-    at train_4k (256 fake ranks, (16, 16), dp_tp): each record ok, FLOPs
-    counted, an all-reduce among the collectives, ``argument_bytes`` equal
-    to the partition specs' arithmetic; the roofline printed.  11c: phase
+    """11b: the production dry-run's cells (``DRYRUN_CELLS``: granite-3-2b
+    and moonshot-v1-16b-a3b at train_4k, mamba2-130m and
+    jamba-1.5-large-398b at train_4k, prefill_32k and decode_32k; 256 fake ranks,
+    (16, 16), dp_tp): each record ok, FLOPs counted, an all-reduce among the
+    collectives, ``argument_bytes`` equal to the partition specs'
+    arithmetic; the roofline printed.  11c: phase
     7's step (granite-3-2b, B 8, S 256) counted on the host mesh, its
     roofline beside phase 7's measured device busy."""
     from types import SimpleNamespace
@@ -2522,24 +2549,30 @@ def dryrun_path(procs: dict, out_dir: str, train_busy_ms: float) -> None:
     from repro_torch.configs import SHAPES, get_arch
 
     mesh = SimpleNamespace(axis_names=("data", "model"), shape={"data": 16, "model": 16})
-    print("phase 11b: the production dry-run, train_4k on 256 fake ranks (16 x 16, dp_tp), "
-          "no card", flush=True)
-    for arch in DRYRUN_ARCHS:
-        rec = wait_dryrun(procs, arch, out_dir, f"{arch}__train_4k__single.json")
+    print("phase 11b: the production dry-run on 256 fake ranks (16 x 16, dp_tp), no card: "
+          + ", ".join(f"{a} {s}" for a, s in DRYRUN_CELLS), flush=True)
+    for arch, shape in DRYRUN_CELLS:
+        rec = wait_dryrun(procs, f"{arch}__{shape}", out_dir, f"{arch}__{shape}__single.json")
         roof, ma = rec["roofline"], rec["memory_analysis"]
         coll = rec["collectives"]
-        want = shard_bytes(get_arch(arch), SHAPES["train_4k"], mesh, "dp_tp")
-        print(f"  {arch}: compute_s {roof['compute_s']:.6f}, memory_s {roof['memory_s']:.6f}, "
-              f"collective_s {roof['collective_s']:.6f}, dominant {roof['dominant']}, "
-              f"useful_ratio {roof['useful_ratio']:.4f}; FLOPs/device "
+        want = shard_bytes(get_arch(arch), SHAPES[shape], mesh, "dp_tp")
+        print(f"  {arch} {shape}: compute_s {roof['compute_s']:.6f}, memory_s "
+              f"{roof['memory_s']:.6f}, collective_s {roof['collective_s']:.6f}, dominant "
+              f"{roof['dominant']}, useful_ratio {roof['useful_ratio']:.4f}; FLOPs/device "
               f"{roof['flops_per_device']:.4e}, bytes/device {roof['bytes_per_device']:.4e}; "
               f"collectives {json.dumps(coll)}; built {rec['compile_s']:.1f} s, counted "
               f"{rec['cost_compile_s']:.1f} s", flush=True)
+        for row in rec["bytes_by_op"][:4]:
+            print(f"    bytes by op: {row['bytes'] / 1e9:.4f} GB in {row['calls']} calls of "
+                  f"{row['op']}", flush=True)
+        # data-parallel training reduces its gradients; the tensor-parallel
+        # layers of a prefill or decode reduce their partial sums
         check(roof["flops_per_device"] > 0 and "all-reduce" in coll,
-              f"{arch}: FLOPs counted, {coll.get('all-reduce', {}).get('count', 0)} all-reduces")
+              f"{arch} {shape}: FLOPs counted, {coll.get('all-reduce', {}).get('count', 0)} "
+              f"all-reduces")
         check(ma["argument_bytes"] == want,
-              f"{arch}: argument_bytes {ma['argument_bytes']} == the local shards' sum from the "
-              f"partition specs ({want / 1e9:.3f} GB a device)")
+              f"{arch} {shape}: argument_bytes {ma['argument_bytes']} == the local shards' sum "
+              f"from the partition specs ({want / 1e9:.3f} GB a device)")
     print("phase 11c: phase 7's step (granite-3-2b, B 8, S 256) counted on the host mesh, "
           "H100 roofline", flush=True)
     rec = wait_dryrun(procs, "host", out_dir, "granite-3-2b__train_4k__host__phase7.json")
@@ -2571,6 +2604,100 @@ def training_rest_path(seed: int, dev, train_busy_ms: float) -> dict:
                     proc.wait()
                 log.close()
     return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the example twins on the card
+# ---------------------------------------------------------------------------
+
+def echo_as(tag: str):
+    """A twin's ``echo``: its printed lines, each under the phase's tag."""
+    def echo(line: str) -> None:
+        for part in str(line).splitlines() or [""]:
+            print(f"  [{tag}] {part}", flush=True)
+    return echo
+
+
+def twins_path(seed: int, dev) -> dict:
+    """Phase 12: ``offload_serving`` at granite-3-2b's full width (both
+    destinations on the card: rmsnorm, flash and decode launches exact),
+    ``openpose_pipeline`` at 368x656 (its destination a process of its own
+    on the card; beliefs bit-identical between the synchronous and the
+    pipelined passes) and ``quickstart`` at its reduced default (30 train
+    steps, then 3 requests served).  -> the launch counts of 12a and 12c."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.avec_openpose import WORKLOAD
+    from repro_torch.examples import offload_serving, openpose_pipeline, quickstart
+    from repro_torch.kernels import ops
+
+    total: dict = {}
+    cfg = get_arch(TWIN_ARCH)
+    L = cfg.num_layers
+    print(f"phase 12a: repro_torch.examples.offload_serving, {cfg.name} at full width ({L} "
+          f"layers, {model_line(cfg)}), two TCP destinations on the card through "
+          f"avec.connect", flush=True)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    res = offload_serving.run(cfg, device=dev, seed=seed, timeout=900.0, echo=echo_as("12a"))
+    torch.cuda.synchronize()
+    counts = all_counts()
+    add_counts(total, counts)
+    b, gen = res["breakdown"], res["tokens"]
+    n_new, n_scores = gen.shape[1] - 1, len(res["scores"])   # decode steps, score calls
+    one = per_call_counts(cfg)
+    n_fwd = 1 + n_new + n_scores                # a prefill, the decode steps, the scores
+    want = {name: 0 for name in counts} | {
+        "rmsnorm": one["rmsnorm"] * n_fwd,
+        "flash_attention": one["flash_attention"] * (1 + n_scores),
+        "decode_attention": one["decode_attention"] * n_new}
+    print(f"  12a: compute_s {b['gpu_s']:.6f}, wire_s {b['communication_s']:.6f}, other_s "
+          f"{b['other_s']:.6f} over {b['cycles']} cycles ({b['bytes_sent']} B out, "
+          f"{b['bytes_received']} B back); model transfer {res['model_transfer_s']:.3f} s; "
+          f"map of {n_scores} scores {res['map_s']:.3f} s over {res['assigned']}; "
+          f"{res['tok_s']:.3f} tokens/s", flush=True)
+    print(f"  12a: tokens {gen.tolist()}", flush=True)
+    print(f"  launches in 12a: {counts}", flush=True)
+    check(counts == want, f"12a launch counts: rmsnorm (2L+1) x {n_fwd} = {want['rmsnorm']}, "
+                          f"flash L x {1 + n_scores} = {want['flash_attention']}, decode "
+                          f"L x {n_new} = {want['decode_attention']}")
+    # the session's profiler counts a cycle for the prefill and each decode step
+    check(b["cycles"] == 1 + n_new and n_new > 0 and n_scores > 0
+          and ((gen >= 0) & (gen < cfg.vocab_size)).all()
+          and sorted(res["assigned"]) == ["cloud-b", "edge-a"]
+          and all(np.isfinite(v) for v in res["scores"].values()),
+          f"12a: {gen.shape} tokens in the vocab over {b['cycles']} profiled cycles, the "
+          f"scores finite and sharded over both destinations")
+
+    H, W = WORKLOAD.frame_h, WORKLOAD.frame_w
+    print(f"phase 12b: repro_torch.examples.openpose_pipeline at {H}x{W}, the destination a "
+          f"process of its own on the card", flush=True)
+    res = openpose_pipeline.run(device=dev.type, frame_h=H, frame_w=W, seed=seed,
+                                echo=echo_as("12b"))
+    per = res["per_cycle"]
+    print(f"  12b: per frame compute_s {per['gpu_s']:.6f}, wire_s {per['communication_s']:.6f}, "
+          f"{per['bytes_per_cycle'] / 1e6:.4f} MB a cycle (Eq. 1: {res['eq1_bytes'] / 1e6:.4f} "
+          f"MB); {res['stream']} frames synchronous {res['sync_s']:.6f} s, pipelined "
+          f"{res['pipelined_s']:.6f} s", flush=True)
+    shape = (1, -(-H // 8), -(-W // 8), 57)
+    check(res["identical"] and res["beliefs_shape"] == shape,
+          f"12b: pipelined beliefs {shape} bit-identical to synchronous")
+
+    print("phase 12c: repro_torch.examples.quickstart, granite-3-2b reduced, 30 steps, on the "
+          "card", flush=True)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    res = quickstart.run("granite-3-2b", device=dev, echo=echo_as("12c"))
+    torch.cuda.synchronize()
+    counts = all_counts()
+    add_counts(total, counts)
+    losses = res["losses"]
+    print(f"  launches in 12c: {counts}", flush=True)
+    check(len(losses) == 30 and np.isfinite(losses).all() and losses[-1] < losses[0]
+          and len(res["tokens"]) == 3 and counts["rmsnorm"] > 0 and counts["flash_attention"] > 0
+          and counts["decode_attention"] > 0,
+          f"12c: loss {losses[0]:.4f} -> {losses[-1]:.4f}, 3 requests served, through the "
+          f"kernels")
+    return total
 
 
 def timed(phase: str, fn, *args, **kwargs):
@@ -2694,7 +2821,8 @@ def main(argv=None) -> int:
               timed("8", openpose_path, args.seed, dev, profile=args.profile),
               timed("9", frontdoor_path, args.seed, dev, served, profile=args.profile),
               families_path(args.seed, dev, profile=args.profile),
-              training_rest_path(args.seed, dev, train_busy_ms)]
+              training_rest_path(args.seed, dev, train_busy_ms),
+              timed("12", twins_path, args.seed, dev)]
     counts = {name: sum(p[name] for p in paths) for name in paths[0]}   # every main path's
 
     replaces = {"rmsnorm": "src/repro/kernels/rmsnorm.py:22",

@@ -28,8 +28,8 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from repro_torch.utils import (BF16Array, dtype_name, keystr, to_numpy, to_tensor,
-                               tree_flatten_with_path, tree_unflatten)
+from repro_torch.utils import (BF16Array, dtype_name, keystr, resolve_device, to_numpy,
+                               to_tensor, tree_flatten_with_path, tree_unflatten)
 
 
 def _flatten_with_keys(tree) -> dict[str, np.ndarray]:
@@ -113,9 +113,13 @@ class Checkpointer:
 
     # ------------------------------------------------------------------
     def restore(self, template: Any, step: Optional[int] = None,
-                device="cpu") -> tuple[Any, int]:
+                device=None) -> tuple[Any, int]:
         """Returns (state, step).  ``template`` defines structure and dtypes;
-        the leaves come back as tensors on ``device``."""
+        the leaves come back as tensors on ``device``.  By default each leaf
+        follows its template tensor's device (a ``meta`` leaf describes only
+        a shape and comes back in host memory), and a leaf the template
+        gives no tensor for goes to the card (``resolve_device``), as the
+        reference restores onto JAX's default device."""
         if step is None:
             step = self.latest_step()
         if step is None:
@@ -133,7 +137,13 @@ class Checkpointer:
                 info = dtypes[key]
                 if info["dtype"] == "bfloat16":
                     arr = arr.view(np.uint16).reshape(info["shape"]).view(BF16Array)
-                t = to_tensor(arr, device)
+                t = to_tensor(arr, _leaf_device(leaf) if device is None else device)
                 want = leaf.dtype if isinstance(leaf, torch.Tensor) else t.dtype
                 leaves.append(t.to(want))
         return tree_unflatten(treedef, leaves), step
+
+
+def _leaf_device(leaf):
+    if not isinstance(leaf, torch.Tensor):
+        return resolve_device()
+    return torch.device("cpu") if leaf.device.type == "meta" else leaf.device

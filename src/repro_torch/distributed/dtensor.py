@@ -69,6 +69,18 @@ def index_copy_(x, dim: int, index, source):
     return per_shard(x, index, source)
 
 
+def like_params(grads, params):
+    """DTensor gradients placed as their parameters (reduced and sharded as
+    GSPMD places a parameter's gradient), so the optimizer's arithmetic
+    meets like placements: DTensor's propagation can leave a gradient
+    sharded and partial over other mesh dims than its parameter, and some
+    PyTorch versions cannot combine the two."""
+    from repro_torch.utils import tree_map
+
+    return tree_map(lambda g, p: g if tuple(g.placements) == tuple(p.placements)
+                    else g.redistribute(p.device_mesh, p.placements), grads, params)
+
+
 def embed_per_shard(tok, tokens):
     """``tok[tokens]`` shard by shard (``local_map``): each device reads its
     batch rows' tokens from the whole table (gathered), and its gradient of
@@ -86,3 +98,55 @@ def embed_per_shard(tok, tokens):
                                                     for p in batch), batch),
                           redistribute_inputs=True, device_mesh=mesh)
     return per_shard(tok, tokens)
+
+
+def ssm_per_shard(fn, x, heads, n_groups: int, args, layouts, out_layouts):
+    """``fn(*args)`` on each device's shards (``local_map``): the SSM
+    mixer's causal conv, SSD scan and decode step, whose depthwise conv
+    over sharded channels and flattening views DTensor cannot place.
+
+    ``layouts`` give each argument's ``(batch dim, head dim)`` and
+    ``out_layouts`` each output's, ``None`` where it has none.  The heads
+    keep the mesh dims over which ``heads`` (a per-head parameter) is
+    ``Shard(0)``, as the sharding rules placed it, provided B's and C's
+    ``n_groups`` groups split with them (a lone group is replicated).  The
+    batch splits over every other mesh dim over which x's is split or
+    divides evenly, whatever placement DTensor's propagation left x in
+    there (PyTorch versions differ: some leave it whole over "model", and
+    every rank there would scan the same rows).  Every other dim is
+    replicated, a ``Partial`` input reduced.  An input whole on a mesh dim
+    that splits the batch or the heads (a weight, or B and C beside split
+    heads) gets a gradient that is a partial sum there."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = x.device_mesh
+    split = ([p == Shard(0) for p in heads.placements] if is_dtensor(heads)
+             else [False] * mesh.ndim)
+    n_split = math.prod(mesh.size(i) for i, s in enumerate(split) if s)
+    if n_groups > 1 and n_groups % n_split:
+        split = [False] * mesh.ndim          # the heads' groups would not follow them
+    batch, n_batch = [], 1
+    for i, (p, s) in enumerate(zip(x.placements, split)):
+        batch.append(not s and (p == Shard(0) or x.shape[0] % (n_batch * mesh.size(i)) == 0))
+        n_batch *= mesh.size(i) if batch[-1] else 1
+
+    def placements(layout):
+        b, h = layout
+        return tuple(Shard(b) if bi and b is not None else
+                     Shard(h) if si and h is not None else Replicate()
+                     for bi, si in zip(batch, split))
+
+    def grad_placements(layout):
+        # an input whole on a mesh dim that splits the work (the batch or
+        # the heads) gets a partial gradient from each of its shards
+        return tuple(Partial() if (bi or si) and p == Replicate() else p
+                     for bi, si, p in zip(batch, split, placements(layout)))
+
+    args = [a if is_dtensor(a) else DTensor.from_local(a, mesh, [Replicate()] * mesh.ndim,
+                                                       run_check=False) for a in args]
+    per_shard = local_map(fn, out_placements=tuple(placements(o) for o in out_layouts),
+                          in_placements=tuple(placements(l) for l in layouts),
+                          in_grad_placements=tuple(grad_placements(l) for l in layouts),
+                          redistribute_inputs=True, device_mesh=mesh)
+    return per_shard(*args)

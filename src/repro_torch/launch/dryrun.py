@@ -41,6 +41,10 @@ What the counts are:
   * ``--attn-impl``, ``--attn-mixed`` and ``--attn-block-q`` are accepted
     and recorded in ``overrides``; this package's attention always goes
     through ``kernels.ops``.
+  * ``bytes_by_op``: the ten kinds of op that move the most of those
+    bytes (name, output placements or "per shard", output shape), each
+    with its calls and bytes, to tell where two PyTorch versions' eager
+    plans part.
   * ``compile_s`` is the time to build and place the cell, and
     ``cost_compile_s`` the time of the counted step.
 
@@ -196,6 +200,20 @@ def _tensor_bytes(tree) -> int:
                if isinstance(t, torch.Tensor))
 
 
+def _op_key(name: str, out) -> str:
+    """An op's kind in ``bytes_by_op``: its name, its output's placements
+    ("per shard" for a plain tensor) and shape."""
+    from torch.distributed.tensor import DTensor
+
+    t = next((t for t in torch.utils._pytree.tree_leaves(out) if isinstance(t, torch.Tensor)),
+             None)
+    if t is None:
+        return name
+    where = ("(" + ", ".join(str(p) for p in t.placements) + ")"
+             if isinstance(t, DTensor) else "per shard")
+    return f"{name} {where} {tuple(t.shape)}"
+
+
 def _contiguous_shard(t):
     from torch.distributed.tensor import DTensor
 
@@ -224,6 +242,7 @@ class CostCounter(TorchDispatchMode):
         self.flops = 0.0
         self.bytes = 0.0
         self.ops = 0
+        self.by_op: dict = {}
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -248,8 +267,12 @@ class CostCounter(TorchDispatchMode):
         div = _shard_factor(out)
         if packet in self._flop_registry:
             self.flops += self._flop_registry[packet](*args, **kwargs, out_val=out) / div
-        self.bytes += (_tensor_bytes((args, kwargs)) + _tensor_bytes(out)) / div
+        nbytes = (_tensor_bytes((args, kwargs)) + _tensor_bytes(out)) / div
+        self.bytes += nbytes
         self.ops += 1
+        key = _op_key(packet.__name__, out)
+        calls, total = self.by_op.get(key, (0, 0.0))
+        self.by_op[key] = (calls + 1, total + nbytes)
         return out
 
 
@@ -281,18 +304,22 @@ def count_cell(cfg, shape, mesh, profile: str) -> dict:
     t0 = time.perf_counter()
     fn, args, shardings = build_cell(cfg, shape, mesh, profile)
     dargs = tuple(place(a, s) for a, s in zip(args, shardings))
+    # before the step: a decode step converts a conv cache leaf in its dict
+    arg_bytes = local_bytes(dargs)
     build_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     with implicit_replication(), _collective_mode() as comm, CostCounter() as cost:
         out = fn(*dargs)
     count_s = time.perf_counter() - t0
     coll, by_type = tally_collectives(comm.calls)
+    top = sorted(cost.by_op.items(), key=lambda kv: -kv[1][1])[:10]
     return {"compile_s": build_s, "cost_compile_s": count_s,
-            "memory_analysis": {"argument_bytes": local_bytes(dargs),
+            "memory_analysis": {"argument_bytes": arg_bytes,
                                 "output_bytes": local_bytes(out),
                                 "temp_bytes": None, "code_bytes": None},
             "flops": cost.flops, "bytes": cost.bytes, "coll": coll, "by_type": by_type,
-            "ops": cost.ops}
+            "ops": cost.ops,
+            "bytes_by_op": [{"op": k, "calls": n, "bytes": b} for k, (n, b) in top]}
 
 
 # ---------------------------------------------------------------------------
@@ -332,6 +359,7 @@ def run_cell(arch: str, shape_name: str, mesh_name: str, profile: str, overrides
         record["cost_method"] = "counted"
         record["cost_analysis"] = {"flops": costs["flops"], "bytes_accessed": costs["bytes"]}
         record["collectives"] = costs["by_type"]
+        record["bytes_by_op"] = costs["bytes_by_op"]
         mf = model_flops_6nd(cfg, shape)
         roof = analyze(costs["flops"], costs["bytes"], costs["coll"], mf, chips)
         record["roofline"] = roof.to_dict()

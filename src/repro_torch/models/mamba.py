@@ -10,13 +10,16 @@ through ``ops.rmsnorm``.  The three convs run as one over the concatenated
 (x, B, C) channels, with the three weights concatenated: a depthwise conv
 is per channel, so the arithmetic is the reference's, and x, B and C reach
 the scan as strided views of the one output.  Decode is plain PyTorch (one
-``ssd_step``).
+``ssd_step``).  On the dry-run's DTensors the conv, the scan and the step
+run per shard (``distributed/dtensor.py``), with x's, B's and C's channels
+each placed as its own.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.dtensor import is_dtensor, ssm_per_shard
 from repro_torch.kernels import ops
 from repro_torch.models.params import ParamSpec
 from repro_torch.models.ssd import ssd_step
@@ -50,13 +53,6 @@ def mamba_specs(cfg) -> dict:
         "norm_scale": ParamSpec((di,), ("mlp",), "ones", dtype=torch.float32),
         "wo": ParamSpec((di, d), ("mlp", "embed"), "normal", di ** -0.5),
     }
-
-
-def _conv_params(p):
-    """The x, B and C conv weights (ck, conv_dim) and biases (conv_dim,),
-    concatenated in the cache's channel order."""
-    return (torch.cat([p["conv_x"], p["conv_B"], p["conv_C"]], dim=1),
-            torch.cat([p["conv_bx"], p["conv_bB"], p["conv_bC"]]))
 
 
 # ---------------------------------------------------------------------------
@@ -97,6 +93,103 @@ def _project(cfg, p, x):
 
 
 # ---------------------------------------------------------------------------
+# The mixer: the causal conv, the SSD scan or step, the D skip
+# ---------------------------------------------------------------------------
+
+def _conv_window(pre, ck: int):
+    """The last ck-1 rows of pre (B,S,C), zero-padded on the left when S is
+    shorter: the conv cache a prefill leaves."""
+    pad = ck - 1 - pre.shape[1]
+    return F.pad(pre, (0, 0, pad, 0)) if pad > 0 else pre[:, -(ck - 1):, :]
+
+
+def _mix(xr, Br, Cr, dt, A, D, wx, wB, wC, bx, bB, bC, *, hd: int, n: int, chunk: int):
+    """The causal conv over (x, B, C) as one, the SSD scan and the D skip
+    -> (y (B,S,di), final state (B,H,P,N) fp32, the pre-conv (B,S,conv_dim)).
+    Head and group counts come from the widths, so a shard's heads work as
+    the whole's."""
+    di, gn = xr.shape[-1], Br.shape[-1]
+    pre = torch.cat([xr, Br, Cr], dim=-1)                         # (B,S,conv_dim), pre-conv
+    post = _causal_conv(pre, torch.cat([wx, wB, wC], dim=1), torch.cat([bx, bB, bC]))
+    xh = post[..., :di].unflatten(-1, (-1, hd))                   # strided views, no copies
+    Bh = post[..., di:di + gn].unflatten(-1, (-1, n))
+    Ch = post[..., di + gn:].unflatten(-1, (-1, n))
+    y, final_state = ops.ssd_scan(xh, dt, A, Bh, Ch, chunk=chunk)
+    y = y + (D[None, None, :, None] * xh.float()).to(y.dtype)
+    return y.flatten(2), final_state, pre
+
+
+def _mix_step(conv, xr, Br, Cr, dt, state, A, D, wx, wB, wC, bx, bB, bC, *, hd: int, n: int):
+    """One decode step of the conv and the SSD recurrence; conv (B,ck-1,
+    conv_dim) is the window before this token -> (y (B,1,di), new window,
+    new state fp32)."""
+    B_, _, di = xr.shape
+    gn = Br.shape[-1]
+    pre = torch.cat([xr, Br, Cr], dim=-1)                         # (B,1,conv_dim)
+    window = torch.cat([conv.to(pre.dtype), pre], dim=1)
+    post = _conv_step(window, torch.cat([wx, wB, wC], dim=1), torch.cat([bx, bB, bC]))
+    x_t = post[:, :di].reshape(B_, -1, hd)
+    y_t, new_state = ssd_step(state, x_t, dt[:, 0], A,
+                              post[:, di:di + gn].reshape(B_, -1, n),
+                              post[:, di + gn:].reshape(B_, -1, n))
+    y_t = y_t + (D[None, :, None] * x_t.float()).to(y_t.dtype)
+    return y_t.reshape(B_, 1, di), window[:, 1:, :], new_state
+
+
+# ---------------------------------------------------------------------------
+# Per shard (the dry-run's DTensors)
+# ---------------------------------------------------------------------------
+# Each argument's (batch dim, head dim): x's channels and the heads shard
+# together; B's and C's channels (gd) follow the heads only when there are
+# several groups (a lone group is replicated).
+
+def _layouts(g: int):
+    """(gd, the layouts of A, D and the six conv weights and biases)."""
+    gd, gw, gb = (2, 1, 0) if g > 1 else (None, None, None)
+    return gd, [(None, 0), (None, 0), (None, 1), (None, gw), (None, gw),
+                (None, 0), (None, gb), (None, gb)]
+
+
+def _mix_shard(cfg, p, x, xr, Br, Cr, dt, A):
+    """``_mix``'s y and final state, on each device's shards."""
+    ssm = cfg.ssm
+    gd, params = _layouts(ssm.n_groups)
+    return ssm_per_shard(
+        lambda *a: _mix(*a, hd=ssm.head_dim, n=ssm.d_state, chunk=ssm.chunk)[:2],
+        x, p["A_log"], ssm.n_groups,
+        (xr, Br, Cr, dt, A, p["D"], p["conv_x"], p["conv_B"], p["conv_C"],
+         p["conv_bx"], p["conv_bB"], p["conv_bC"]),
+        [(0, 2), (0, gd), (0, gd), (0, 2), *params],
+        [(0, 2), (0, 1)])
+
+
+def _mix_step_shard(cfg, p, x, conv, xr, Br, Cr, dt, state, A):
+    """``_mix_step``'s y and new state, on each device's shards: the conv
+    cache is split into x's, B's and C's channels first (replicated, then
+    each placed as its channels)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    ssm = cfg.ssm
+    gd, params = _layouts(ssm.n_groups)
+    di, gn = xr.shape[-1], Br.shape[-1]
+    conv = conv.redistribute(placements=[pl if pl == Shard(0) else Replicate()
+                                         for pl in conv.placements])
+    cx, cB, cC = conv[..., :di], conv[..., di:di + gn], conv[..., di + gn:]
+
+    def fn(cx, cB, cC, *a):
+        y, _, new_state = _mix_step(torch.cat([cx, cB, cC], dim=-1), *a,
+                                    hd=ssm.head_dim, n=ssm.d_state)
+        return y, new_state
+
+    return ssm_per_shard(
+        fn, x, p["A_log"], ssm.n_groups,
+        (cx, cB, cC, xr, Br, Cr, dt, state, A, p["D"], p["conv_x"], p["conv_B"],
+         p["conv_C"], p["conv_bx"], p["conv_bB"], p["conv_bC"]),
+        [(0, 2), (0, gd), (0, gd), (0, 2), (0, gd), (0, gd), (0, 2), (0, 1), *params],
+        [(0, 2), (0, 1)])
+
+
+# ---------------------------------------------------------------------------
 # Sequence forward (train / prefill)
 # ---------------------------------------------------------------------------
 
@@ -104,32 +197,24 @@ def mamba_forward(cfg, p, x, *, return_cache: bool = False):
     """x: (B,S,d) -> (out, cache|None).  Cache: {"conv": (B,ck-1,conv_dim)
     in x.dtype, "ssm": (B,H,P,N) fp32}."""
     ssm = cfg.ssm
-    B_, S, d = x.shape
-    di = ssm.d_inner(d)
-    nh = ssm.n_heads(d)
-    hd = ssm.head_dim
-    g, n = ssm.n_groups, ssm.d_state
-    gn = g * n
-
+    ck = ssm.conv_kernel
     z, xr, Br, Cr, dt = _project(cfg, p, x)
-    pre = torch.cat([xr, Br, Cr], dim=-1)                         # (B,S,conv_dim), pre-conv
-    post = _causal_conv(pre, *_conv_params(p))
-
     A = -torch.exp(p["A_log"])
-    xh = post[..., :di].unflatten(-1, (nh, hd))                   # strided views, no copies
-    Bh = post[..., di:di + gn].unflatten(-1, (g, n))
-    Ch = post[..., di + gn:].unflatten(-1, (g, n))
-    y, final_state = ops.ssd_scan(xh, dt, A, Bh, Ch, chunk=ssm.chunk)
-    y = y + (p["D"][None, None, :, None] * xh.float()).to(y.dtype)
-    y = y.reshape(B_, S, di)
+    if is_dtensor(x):
+        # the window outside the shards: each rank's tail of B and C is whole
+        # where its conv and scan see only some heads' share of them
+        y, final_state = _mix_shard(cfg, p, x, xr, Br, Cr, dt, A)
+        window = (torch.cat([_conv_window(t, ck) for t in (xr, Br, Cr)], dim=-1)
+                  if return_cache else None)
+    else:
+        y, final_state, pre = _mix(xr, Br, Cr, dt, A, p["D"], p["conv_x"], p["conv_B"],
+                                   p["conv_C"], p["conv_bx"], p["conv_bB"], p["conv_bC"],
+                                   hd=ssm.head_dim, n=ssm.d_state, chunk=ssm.chunk)
+        window = _conv_window(pre, ck) if return_cache else None
     y = _gated_norm(y, z, p["norm_scale"])
     out = y @ p["wo"].to(y.dtype)
-
     if not return_cache:
         return out, None
-    ck = ssm.conv_kernel
-    pad = max(ck - 1 - S, 0)
-    window = F.pad(pre, (0, 0, pad, 0))[:, -(ck - 1):, :]
     return out, {"conv": window, "ssm": final_state}
 
 
@@ -142,26 +227,19 @@ def mamba_decode(cfg, p, x, cache):
     Returns (out, new cache) as new tensors; the caller writes them into
     its stacked cache."""
     ssm = cfg.ssm
-    B_, _, d = x.shape
-    nh = ssm.n_heads(d)
-    hd = ssm.head_dim
-    g, n = ssm.n_groups, ssm.d_state
-    di = ssm.d_inner(d)
-    gn = g * n
-
     z, xr, Br, Cr, dt = _project(cfg, p, x)
-    pre = torch.cat([xr, Br, Cr], dim=-1)                         # (B,1,conv_dim)
-    window = torch.cat([cache["conv"].to(pre.dtype), pre], dim=1)
-    new_conv = window[:, 1:, :]
-    post = _conv_step(window, *_conv_params(p))                   # (B,conv_dim)
-
     A = -torch.exp(p["A_log"])
-    x_t = post[:, :di].reshape(B_, nh, hd)
-    y_t, new_state = ssd_step(cache["ssm"], x_t, dt[:, 0], A,
-                              post[:, di:di + gn].reshape(B_, g, n),
-                              post[:, di + gn:].reshape(B_, g, n))
-    y_t = y_t + (p["D"][None, :, None] * x_t.float()).to(y_t.dtype)
-    y = _gated_norm(y_t.reshape(B_, 1, di), z, p["norm_scale"])
+    if is_dtensor(x):
+        y, new_state = _mix_step_shard(cfg, p, x, cache["conv"], xr, Br, Cr, dt,
+                                       cache["ssm"], A)
+        pre = torch.cat([xr, Br, Cr], dim=-1)           # the window outside, as the prefill's
+        new_conv = torch.cat([cache["conv"].to(pre.dtype), pre], dim=1)[:, 1:, :]
+    else:
+        y, new_conv, new_state = _mix_step(cache["conv"], xr, Br, Cr, dt, cache["ssm"], A,
+                                           p["D"], p["conv_x"], p["conv_B"], p["conv_C"],
+                                           p["conv_bx"], p["conv_bB"], p["conv_bC"],
+                                           hd=ssm.head_dim, n=ssm.d_state)
+    y = _gated_norm(y, z, p["norm_scale"])
     out = y @ p["wo"].to(y.dtype)
     return out, {"conv": new_conv, "ssm": new_state}
 

@@ -10,6 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.distributed.dtensor import is_dtensor, like_params
 from repro_torch.models import model as M
 from repro_torch.optim.optimizer import OptimizerConfig, apply_updates
 from repro_torch.utils import tree_flatten, tree_leaves, tree_map, tree_unflatten
@@ -66,6 +67,8 @@ def make_train_step(cfg, ocfg: OptimizerConfig, accum: int = 1):
             loss = lsum / accum
             metrics = {"loss": loss, "xent": loss,
                        "aux": torch.zeros((), dtype=torch.float32, device=device)}
+        if is_dtensor(tree_leaves(params)[0]):
+            grads = like_params(grads, params)
         with torch.profiler.record_function(UPDATE_SPAN):
             params, opt_state, om = apply_updates(ocfg, grads, opt_state, params, step_idx)
         return params, opt_state, {**metrics, **om}

@@ -131,7 +131,11 @@ print(json.dumps({"flops": costs["flops"], "bytes": costs["bytes"], "ops": sorte
     # 2 kv heads over model 4: k and v repeated to the query heads per shard
     ("granite-3-2b", "train_4k", 2, 2), ("granite-3-2b", "decode_32k", 2, 2),
     ("moonshot-v1-16b-a3b", "train_4k", 4, 4), ("moonshot-v1-16b-a3b", "prefill_32k", 4, 4),
-    ("moonshot-v1-16b-a3b", "decode_32k", 4, 4), ("whisper-medium", "prefill_32k", 4, 4)])
+    ("moonshot-v1-16b-a3b", "decode_32k", 4, 4), ("whisper-medium", "prefill_32k", 4, 4),
+    # the SSM mixer per shard: its conv, scan and decode step (heads split 2 ways)
+    ("mamba2-130m", "train_4k", 4, 4), ("mamba2-130m", "prefill_32k", 4, 4),
+    ("mamba2-130m", "decode_32k", 4, 4), ("jamba-1.5-large-398b", "train_4k", 4, 4),
+    ("jamba-1.5-large-398b", "prefill_32k", 4, 4), ("jamba-1.5-large-398b", "decode_32k", 4, 4)])
 def test_mini_dryrun_subprocess(arch, shape, data, kv):
     rec = _run(MINI_DRYRUN, arch, shape, str(data), str(kv))
     assert rec["flops"] > 0 and rec["bytes"] > 0
@@ -164,6 +168,10 @@ def test_cli_host_mesh_records_the_reference_keys(tmp_path):
     rec = out["rec"]
     assert rec["ok"] and REF_KEYS <= set(rec), sorted(rec)
     assert rec["mesh"] == "host" and rec["chips"] == 1 and rec["cost_method"] == "counted"
+    # the ops that move the most bytes, largest first, a share of the count
+    by_op = [r["bytes"] for r in rec["bytes_by_op"]]
+    assert len(by_op) == 10 and by_op == sorted(by_op, reverse=True)
+    assert 0 < sum(by_op) <= rec["cost_analysis"]["bytes_accessed"]
     assert rec["overrides"] == {"attn_impl": "blocked"}
     ma = rec["memory_analysis"]
     cfg = tconfigs.get_arch("granite-3-2b")
@@ -254,3 +262,120 @@ def test_dtensor_shards_take_the_ops_device_dispatch():
     assert out["seen"] == [["Tensor", "cpu"], ["Tensor", "cpu"]]
     assert out["flash"] == 0.0 and out["decode"] == 0.0
     assert all(r and "needs CUDA tensors" in r for r in out["refused"]), out["refused"]
+
+
+SSM_PER_SHARD = r"""
+import sys, json, os, dataclasses
+sys.path.insert(0, sys.argv[1])
+import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Replicate, Shard, distribute_tensor
+from repro_torch.configs import get_arch, reduced
+from repro_torch.distributed import sharding as sh
+from repro_torch.launch.mesh import make_host_mesh, make_mesh
+from repro_torch.models import mamba as mb
+from repro_torch.models.params import init_params
+from repro_torch.utils import tree_map
+
+B, S = 2, 13                    # a ragged last chunk (chunk 8)
+
+
+def run(rank, world, shape, groups, head_dim, dtype, store_path, out_path):
+    if world == 1:
+        mesh = make_host_mesh("cpu")
+    else:
+        dist.init_process_group("gloo", store=dist.FileStore(store_path, world), rank=rank,
+                                world_size=world)
+        mesh = make_mesh(shape, ("data", "model"))
+    base = reduced(get_arch("mamba2-130m"))
+    cfg = dataclasses.replace(base, ssm=dataclasses.replace(base.ssm, n_groups=groups,
+                                                           head_dim=head_dim or base.ssm.head_dim))
+    specs = mb.mamba_specs(cfg)
+    g = torch.Generator().manual_seed(0)
+    dt = getattr(torch, dtype)
+    p = tree_map(lambda t: t + 0.1 * torch.randn(t.shape, generator=g, dtype=dt),
+                 init_params(specs, 0, dt, device="cpu"))
+    x = torch.randn(B, S, cfg.d_model, generator=g, dtype=dt)
+    x1 = torch.randn(B, 1, cfg.d_model, generator=g, dtype=dt)
+
+    # plain tensors: prefill, one decode step, and the gradients of a loss
+    pp = tree_map(lambda t: t.clone().requires_grad_(), p)
+    out, cache = mb.mamba_forward(cfg, pp, x, return_cache=True)
+    dec, new = mb.mamba_decode(cfg, pp, x1, cache)
+    (out.pow(2).sum() + dec.pow(2).sum()).backward()
+    plain = {"out": out, "conv": cache["conv"], "ssm": cache["ssm"], "dec": dec,
+             "new_conv": new["conv"], "new_ssm": new["ssm"]}
+    plain_grads = tree_map(lambda t: t.grad, pp)
+
+    # DTensors placed by the sharding rules; the batch over "data"
+    dm = mesh.device_mesh
+    pd = tree_map(lambda t, s: distribute_tensor(t.detach(), dm, s.placements).requires_grad_(),
+                  p, sh.specs_to_shardings(mesh, specs, "dp_tp"))
+    xd = distribute_tensor(x, dm, [Shard(0), Replicate()])
+    x1d = distribute_tensor(x1, dm, [Shard(0), Replicate()])
+    out, cache = mb.mamba_forward(cfg, pd, xd, return_cache=True)
+    # the decode cache as the dry-run places it (channels over "model")
+    conv = cache["conv"].redistribute(dm, [Shard(0), Shard(2)])
+    dec, new = mb.mamba_decode(cfg, pd, x1d, {"conv": conv, "ssm": cache["ssm"]})
+    (out.full_tensor().pow(2).sum() + dec.full_tensor().pow(2).sum()).backward()
+    got = {"out": out, "conv": cache["conv"], "ssm": cache["ssm"], "dec": dec,
+           "new_conv": new["conv"], "new_ssm": new["ssm"]}
+    errs = {k: (got[k].full_tensor() - v).abs().max().item() for k, v in plain.items()}
+    grads = {k: (pd[k].grad.full_tensor() - plain_grads[k]).abs().max().item()
+             / plain_grads[k].abs().max().item() for k in p}
+    split = [str(pl) for pl in pd["A_log"].placements]
+    if rank == 0:
+        with open(out_path, "w") as f:
+            json.dump({"errs": errs, "grads": grads, "split": split,
+                       "y": [str(pl) for pl in out.placements],
+                       "state": [str(pl) for pl in cache["ssm"].placements]}, f)
+    if world > 1:
+        dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    data, model, groups, tmp = int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]), sys.argv[5]
+    head_dim = int(sys.argv[6]) if len(sys.argv) > 6 else 0
+    dtype = sys.argv[7] if len(sys.argv) > 7 else "float32"
+    world, out_path = data * model, os.path.join(tmp, "out.json")
+    if world == 1:
+        run(0, 1, (1, 1), groups, head_dim, dtype, None, out_path)
+    else:
+        import torch.multiprocessing as mp
+        mp.spawn(run, args=(world, (data, model), groups, head_dim, dtype, os.path.join(tmp, "store"),
+                            out_path), nprocs=world)
+    print(open(out_path).read())
+"""
+
+
+@pytest.mark.parametrize("data,model,groups", [(1, 1, 1), (2, 2, 1), (2, 2, 2), (1, 4, 1)])
+def test_ssm_mixer_per_shard_equals_plain_tensors(tmp_path, data, model, groups):
+    """The mamba mixer on DTensors (its causal conv, SSD scan and decode
+    step per shard) against the same weights and inputs as plain tensors:
+    on the host mesh (one gloo rank), and on 4 CPU ranks of gloo with the
+    batch over "data" and the heads over "model" (B's and C's channels with
+    them when there are two groups, replicated when there is one).  The
+    prefill output and cache, the decode step and the weights' gradients
+    (partial sums over the batch) equal the plain ones."""
+    out = _run(SSM_PER_SHARD, str(data), str(model), str(groups), str(tmp_path))
+    if model > 1:       # heads split: the output projection leaves a partial sum
+        assert out["split"] == ["R", "S(0)"] and out["y"] == ["S(0)", "P(sum)"]
+    # one rank: the same ops on the same tensors; four: fp32 sums in another order
+    tol = 0.0 if data * model == 1 else 1e-5
+    assert all(e <= tol for e in out["errs"].values()), out["errs"]
+    assert all(e <= tol for e in out["grads"].values()), out["grads"]
+
+
+def test_ssm_mixer_per_shard_whole_heads_split_the_batch(tmp_path):
+    """One head of 128 (it cannot split over "model" 2, so the rules leave
+    it whole) and x whole over "model": the conv and scan take the batch
+    over "model" too, so no two ranks scan the same rows, and the values
+    and gradients still equal the plain tensors'.  In float64: with one
+    head, D's gradient is a single sum over every batch row, position and
+    channel, which cancels so far that fp32 sums in another order on two
+    ranks land 2e-5 to 1.2e-4 of its value apart (two PyTorch versions);
+    in float64 only the scan's fp32 internals differ (about 7e-8)."""
+    out = _run(SSM_PER_SHARD, "1", "2", "1", str(tmp_path), "128", "float64")
+    assert out["split"] == ["R", "R"] and out["state"] == ["S(0)", "S(0)"]
+    assert all(e <= 1e-6 for e in out["errs"].values()), out["errs"]
+    assert all(e <= 1e-6 for e in out["grads"].values()), out["grads"]
