@@ -165,7 +165,25 @@ Phases (any failed check exits non-zero):
    368x656, its destination a process of its own on the card: the loop
    under ``client.intercept``, synchronous against pipelined (beliefs
    bit-identical), Table IV.  12c: ``repro_torch.examples.quickstart`` at
-   its reduced default (granite-3-2b, 30 train steps, 3 requests served).
+   its reduced default (granite-3-2b, 30 train steps, 3 requests served);
+13. the benchmark twins (``repro_torch.benchmarks``) on the card, each
+   measured line naming the card and its power limit.  13a:
+   ``micro.bench_kernels`` (flash q/k/v (1, 8, 512, 64), rmsnorm and the
+   quantize on (4096, 1024), fp32): each kernel launched once per warm-up and
+   timed call, each output held against its plain version at phase 3's fp32
+   tolerances, device time and host us a call printed.  13b:
+   ``micro.bench_engine`` at granite-3-2b's full width with the bench's
+   traffic (8 requests of 8 tokens, 8 new each, 4 slots): launches exact
+   from its prefills and ticks.  13c: ``micro.bench_moe_dispatch`` on
+   arctic-480b's MoE layer at full width (128 experts of d_ff 4864, top-2,
+   dense residual, bf16: 26.8 GB of experts): the wall, device busy and
+   peak memory; the dispatch of 16 tokens held against a plain per-token
+   loop over the routed experts.  13d: ``micro.bench_avec_offload_real``
+   (phase 8's bytes a cycle) and ``micro.dataplane_report`` with its
+   destinations on the card: the committed ``BENCH_dataplane.json``'s
+   sections and keys, its correctness flags held, its timing gates printed.
+   13e: ``roofline_report`` and ``render_experiments`` over phase 11b's
+   records: one row per cell, the report written under ``chipwork/``.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -226,6 +244,15 @@ DRYRUN_CELLS = (("granite-3-2b", "train_4k"), ("moonshot-v1-16b-a3b", "train_4k"
                   for shape in ("train_4k", "prefill_32k", "decode_32k")))
 # phase 12: the example twins (offload_serving at this arch's full width)
 TWIN_ARCH = "granite-3-2b"
+# phase 13: the benchmark twins.  ``micro._time``'s warm-up call and its 5
+# timed calls; the engine bench's traffic (its requests, tokens each, slots);
+# the MoE layer at arctic-480b's full width and the tokens of the dispatch
+# held against the per-token loop; where phase 11b's records and the rendered
+# report go, under the checkout's git-ignored chipwork/
+BENCH_CALLS = 1 + 5
+BENCH_ENGINE = (8, 8, 4)
+MOE_ARCH, MOE_CHECK_T = "arctic-480b", 16
+DRYRUN_DIR, RENDERED = "chipwork/smoke_dryrun", "chipwork/EXPERIMENTS_torch.md"
 VISION_T, AUDIO_F = 1600, 1500
 CROSS_LENS = (VISION_T, AUDIO_F)
 # phase 3 at the new paths' shapes (B, H, K, Sq, Sk, D), dtype, causal:
@@ -335,6 +362,30 @@ def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
         if events and len(events) % iters == 0:
             return sum(e.time_range.elapsed_us() for e in events) / 1e3 / iters
     raise CheckFailed(f"the profiler saw {len(events)} kernel events for {iters} calls")
+
+
+def queued_ms(fn, iters: int = 50) -> float:
+    """Device time per call from CUDA events around ``iters`` calls queued
+    behind a device-side spin (``torch.cuda._sleep``): the device runs them
+    back to back, so the events time no host work, and no profiler is
+    needed.  Retried with a longer spin while the device reached the first
+    call before the host had queued the last."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    cycles = 1 << 22
+    for _ in range(6):
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        queued = not start.query()          # still spinning: every call was queued in time
+        end.synchronize()
+        if queued:
+            return start.elapsed_time(end) / iters
+        cycles *= 4
+    raise CheckFailed(f"the host did not queue {iters} calls within the device's spin")
 
 
 def bound_ms(nbytes: int, flops: float, dtype) -> tuple[float, str]:
@@ -1518,7 +1569,8 @@ def openpose_application(net, params, frames) -> list:
     return outputs
 
 
-def openpose_path(seed: int, dev, profile: bool = False) -> dict:
+def openpose_path(seed: int, dev, profile: bool = False) -> tuple[dict, float]:
+    """-> (launch counts, bytes on the wire per cycle)."""
     from repro_torch.configs.avec_openpose import WORKLOAD
     from repro_torch.core.executor import DestinationExecutor, PipelinedHostRuntime
     from repro_torch.core.interception import ArgSpec, AvecSession, InterceptionLibrary
@@ -1656,7 +1708,7 @@ def openpose_path(seed: int, dev, profile: bool = False) -> dict:
             profile_call(f"openpose forward B {B_big}", lambda: lib["forward"](
                 entry["params"], entry["state"], {"frames": fb}))
             del f1, fb
-        return counts
+        return counts, per["bytes_per_cycle"]
     finally:
         rt.close()
         server.stop()
@@ -2588,21 +2640,24 @@ def dryrun_path(procs: dict, out_dir: str, train_busy_ms: float) -> None:
 
 def training_rest_path(seed: int, dev, train_busy_ms: float) -> dict:
     """Phase 11: the dry-runs start as processes, 11a runs on the card, then
-    11b and 11c read the dry-runs' records.  -> 11a's launch counts."""
-    import tempfile
+    11b and 11c read the dry-runs' records (kept in DRYRUN_DIR for phase
+    13e).  -> 11a's launch counts."""
+    import shutil
 
     root = Path(__file__).resolve().parent
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_dryrun_") as out_dir:
-        procs = start_dryruns(root, out_dir)
-        try:
-            counts = timed("11a", xent_path, seed, dev)
-            timed("11b/c", dryrun_path, procs, out_dir, train_busy_ms)
-        finally:
-            for proc, log in procs.values():
-                if proc.poll() is None:
-                    proc.kill()
-                    proc.wait()
-                log.close()
+    out_dir = str(root / DRYRUN_DIR)          # phase 13e reads the records
+    shutil.rmtree(out_dir, ignore_errors=True)
+    Path(out_dir).mkdir(parents=True)
+    procs = start_dryruns(root, out_dir)
+    try:
+        counts = timed("11a", xent_path, seed, dev)
+        timed("11b/c", dryrun_path, procs, out_dir, train_busy_ms)
+    finally:
+        for proc, log in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
     return counts
 
 
@@ -2700,6 +2755,289 @@ def twins_path(seed: int, dev) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the benchmark twins on the card
+# ---------------------------------------------------------------------------
+
+def engine_ticks(n_reqs: int, new: int, slots: int) -> int:
+    """The decode ticks ``ServingEngine.run`` takes for ``n_reqs`` requests
+    of ``new`` tokens each through ``slots`` slots (no EOS): a prefill gives
+    an admitted request its first token, each tick one more to every busy
+    slot, and a request leaves its slot at ``new`` tokens."""
+    queue, busy, ticks = n_reqs, [], 0
+    while queue or busy:
+        while queue and len(busy) < slots:
+            queue -= 1
+            busy.append(1)
+        busy = [g for g in busy if g < new]
+        if busy:
+            busy = [g + 1 for g in busy]
+            ticks += 1
+            busy = [g for g in busy if g < new]
+    return ticks
+
+
+def moe_token_loop(cfg, p, x):
+    """The MoE layer one token at a time, plain PyTorch with no dispatch
+    buffer: each token routed alone (fp32), its top-k experts' SwiGLU
+    weighted by the renormalised probabilities, an assignment past its
+    expert's capacity dropped (counted in token order, as the dispatch's
+    stable sort keeps them), plus the dense residual MLP.  x (T, d) ->
+    (y (T, d), probs (T, E), top_e (T, k))."""
+    from repro_torch.models.mlp import apply_mlp
+    from repro_torch.models.moe import _capacity
+
+    m = cfg.moe
+    cap = _capacity(cfg, x.shape[0])
+    used = [0] * m.num_experts
+    ys, probs, tops = [], [], []
+    for t in range(x.shape[0]):
+        xt = x[t:t + 1]
+        pr = torch.softmax(xt.float() @ p["router"].float(), dim=-1)
+        tp, te = torch.topk(pr, m.top_k, dim=-1)
+        tp = tp / tp.sum(dim=-1, keepdim=True)
+        outs = []
+        for j, e in enumerate(te[0].tolist()):
+            w = (tp[0, j] * (used[e] < cap)).to(x.dtype)
+            used[e] += 1
+            h = F.silu(xt @ p["w_gate"][e]) * (xt @ p["w_up"][e])
+            outs.append((h @ p["w_down"][e]) * w)
+        y = torch.stack(outs).sum(dim=0)
+        if m.dense_residual:
+            y = y + apply_mlp(cfg, p["dense"], xt[None])[0]
+        ys.append(y)
+        probs.append(pr)
+        tops.append(te)
+    return torch.cat(ys), torch.cat(probs), torch.cat(tops)
+
+
+def bench_kernels_path(dev, card: str) -> dict:
+    """13a: ``bench_kernels`` on the card (flash q/k/v (1, 8, 512, 64),
+    rmsnorm and the quantize on x (4096, 1024), all fp32): each kernel
+    launched once per warm-up and timed call, each output held against its
+    plain version on the bench's inputs at phase 3's fp32 tolerances."""
+    from repro_torch.benchmarks import micro
+    from repro_torch.kernels import ops
+
+    print(f"phase 13a: repro_torch.benchmarks.micro.bench_kernels on the card, fp32 [{card}]",
+          flush=True)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    rows = micro.bench_kernels(device=dev)
+    torch.cuda.synchronize()
+    counts = all_counts()
+    want = {name: 0 for name in counts} | {
+        "rmsnorm": BENCH_CALLS, "flash_attention": BENCH_CALLS,
+        "quantize_int8": BENCH_CALLS, "quantize_int8_vec": BENCH_CALLS}
+    print(f"  launches in 13a: {counts}", flush=True)
+    check(counts == want and all(d == "cuda" for _, _, d in rows),
+          f"13a: rmsnorm, flash and the quantize each launched {BENCH_CALLS} times (a warm-up "
+          f"and 5 timed calls), the quantize on its vector branch; every row says cuda")
+    t = micro._kernel_inputs(dev)
+    q, k, v = (t[n].transpose(1, 2) for n in "qkv")
+    x, s = t["x"], t["scale"]
+    e_fa = max_err(ops.flash_attention(q, k, v), ops.flash_attention(q, k, v, impl="ref"))
+    e_rms = max_err(ops.rmsnorm(x, s), ops.rmsnorm(x, s, impl="ref"))
+    (qk, sk), (qr, sr) = ops.quantize_int8(x), ops.quantize_int8(x, impl="ref")
+    check(e_fa <= 2e-5 and e_rms <= 1e-5 and torch.equal(qk, qr) and torch.equal(sk, sr),
+          f"13a: flash max abs err {e_fa:.2e} (<= 2e-5), rmsnorm {e_rms:.2e} (<= 1e-5), "
+          f"quantize q and scale equal ({int((qk != qr).sum())} q differ)")
+    f32 = torch.float32
+    S, D = t["q"].shape[2:]
+    calls = {"kernel_ref/attention_8h_512": (
+                 lambda: ops.flash_attention(q, k, v),
+                 bound_ms(nbytes(q, k, v, q), 4 * q.shape[2] * D * S * (S + 1) // 2, f32)),
+             "kernel_ref/rmsnorm_4Mx": (lambda: ops.rmsnorm(x, s),
+                                        bound_ms(nbytes(x, s, x), 4 * x.numel(), f32)),
+             "kernel_ref/quant_int8_4MB": (lambda: ops.quantize_int8(x),
+                                           bound_ms(nbytes(x, qk, sk), 0, f32))}
+    for name, us, derived in rows:
+        fn, (b, why) = calls[name]
+        print(f"  13a: {name}: {us:.2f} us a call (bench wall, synchronized), device "
+              f"{queued_ms(fn) * 1e3:.3f} us (CUDA events, calls queued; bound {b * 1e3:.3f} "
+              f"us by {why}), host {host_us(fn):.2f} us a call ({derived}) [{card}]", flush=True)
+    del t, q, k, v, x, s, qk, sk, qr, sr
+    return counts
+
+
+def bench_engine_path(dev, card: str) -> dict:
+    """13b: ``bench_engine`` at granite-3-2b's full width with the bench's
+    traffic (8 requests of 8 prompt tokens, 8 new tokens each, 4 slots,
+    max_len 64): launches exact from the engine's prefills and ticks."""
+    from repro_torch.benchmarks import micro
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+
+    cfg = get_arch(TWIN_ARCH)
+    L = cfg.num_layers
+    n_reqs, new, slots = BENCH_ENGINE
+    print(f"phase 13b: repro_torch.benchmarks.micro.bench_engine, {cfg.name} at full width ({L} "
+          f"layers, {model_line(cfg)}), {n_reqs} requests of 8 prompt tokens, {new} new tokens "
+          f"each, {slots} slots [{card}]", flush=True)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    rows = micro.bench_engine(cfg, device=dev)
+    torch.cuda.synchronize()
+    counts = all_counts()
+    ticks, one = engine_ticks(n_reqs, new, slots), per_call_counts(cfg)
+    want = {name: 0 for name in counts} | {
+        "rmsnorm": one["rmsnorm"] * (n_reqs + ticks),
+        "flash_attention": one["flash_attention"] * n_reqs,
+        "decode_attention": one["decode_attention"] * ticks}
+    (name, us, derived), = rows
+    print(f"  13b: {name}: {us / 1e6:.3f} s for {n_reqs * new} tokens, {derived} [{card}]; "
+          f"launches {counts}", flush=True)
+    check(counts == want, f"13b launch counts: flash L x {n_reqs} prefills = "
+                          f"{want['flash_attention']}, decode L x {ticks} ticks = "
+                          f"{want['decode_attention']}, rmsnorm (2L+1) x {n_reqs + ticks} = "
+                          f"{want['rmsnorm']}")
+    return counts
+
+
+def bench_moe_path(dev, card: str) -> dict:
+    """13c: ``bench_moe_dispatch`` at arctic-480b's full width (one layer:
+    128 experts of d_ff 4864, top-2, the dense residual, bf16) on the
+    bench's (8, 64) tokens; the dispatch on MOE_CHECK_T tokens held against
+    the plain per-token loop (``moe_token_loop``) at the port's bf16
+    tolerance, rows whose experts differ at a near-tie counted and left
+    out."""
+    import gc
+
+    from repro_torch.benchmarks import micro
+    from repro_torch.configs import get_arch, with_overrides
+    from repro_torch.kernels import ops
+    from repro_torch.models.moe import apply_moe, route
+
+    cfg = with_overrides(get_arch(MOE_ARCH), num_layers=1)
+    m = cfg.moe
+    before = fresh_peak()
+    print(f"phase 13c: repro_torch.benchmarks.micro.bench_moe_dispatch, {cfg.name}'s MoE layer "
+          f"at full width (d_model {cfg.d_model}, {m.num_experts} experts top-{m.top_k} of "
+          f"d_ff {m.d_ff}, dense residual, {cfg.compute_dtype}), (8, 64) tokens; "
+          f"{before / 1e9:.2f} GB allocated before [{card}]", flush=True)
+    p, x = micro._moe_inputs(cfg, dev)
+    experts = sum(p[n].numel() * p[n].element_size() for n in ("w_gate", "w_up", "w_down"))
+    with torch.inference_mode():
+        apply_moe(cfg, p, x)                        # warm: cuBLAS's workspaces
+        wall_ms, kernels, _ = device_events(lambda: apply_moe(cfg, p, x))
+        busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+        xs = x.reshape(-1, cfg.d_model)[:MOE_CHECK_T]
+        y = apply_moe(cfg, p, xs[None])[0][0]
+        probs, _, top_e = route(cfg, xs[None], p["router"])
+        y_loop, probs_loop, top_loop = moe_token_loop(cfg, p, xs)
+    flipped, gap = routing_flips([(probs, top_e)], [(probs_loop, top_loop)], m.top_k)
+    keep = ~flipped
+    tol = 2e-2                                      # tests/test_torch_kernels.py's bf16
+    err = (y[keep].float() - y_loop[keep].float()).abs()
+    ok = bool((err <= tol + tol * y_loop[keep].float().abs()).all())
+    print(f"  13c: layer 0's experts {experts / 1e9:.3f} GB; one dispatch of 512 tokens: wall "
+          f"{wall_ms:.3f} ms, device busy {busy_ms:.3f} ms ({len(kernels)} device events) "
+          f"[{card}]", flush=True)
+    check(ok and bool((gap[flipped] <= 0.1).all()),
+          f"13c: dispatch of {MOE_CHECK_T} tokens vs the per-token loop over the routed "
+          f"experts: max abs err {err.max().item():.3e} (atol = rtol = {tol}), "
+          f"{int(flipped.sum())} rows flipped at a near-tie (relative gap <= 0.1) left out")
+    del p, x, xs, y, y_loop, probs, probs_loop
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    rows = micro.bench_moe_dispatch(cfg, device=dev)
+    torch.cuda.synchronize()
+    counts = all_counts()
+    (name, us, derived), = rows
+    peak = torch.cuda.max_memory_allocated()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  13c: {name}: {us / 1e3:.3f} ms a call (bench wall, synchronized), {derived}; peak "
+          f"device memory {peak / 1e9:.2f} GB (the init's fp32 draws included), "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated after [{card}]", flush=True)
+    check(not any(counts.values()) and name == f"moe/dispatch_512tok_{m.num_experts}e",
+          f"13c: {name}, none of the six kernels (the experts' GEMMs are cuBLAS's)")
+    return counts
+
+
+def dataplane_twins_path(dev, card: str, op_bytes: float) -> None:
+    """13d: ``bench_avec_offload_real`` with the destination on the card
+    (phase 8's bytes a cycle), then ``dataplane_report`` (the OpenPose
+    destination a process on the card, the coalesced matmuls on the card):
+    the sections and keys of the committed ``BENCH_dataplane.json`` (read
+    as data), its correctness flags held, its timing gates printed."""
+    from repro_torch.benchmarks import micro
+    from repro_torch.benchmarks.run import summary_rows
+
+    root = Path(__file__).resolve().parent
+    print(f"phase 13d: bench_avec_offload_real and dataplane_report, the destinations on the "
+          f"card [{card}]", flush=True)
+    rows = micro.bench_avec_offload_real(device=dev)
+    for name, us, derived in rows:
+        print(f"  13d: {name},{us:.2f},{derived} [{card}]", flush=True)
+    comm = dict((n, d) for n, _, d in rows)["avec_real/cycle_comm"]
+    check(comm == f"{op_bytes / 1e6:.2f}MB/cycle",
+          f"13d: {comm}, phase 8's {op_bytes / 1e6:.4f} MB a cycle at the row's two decimals")
+
+    def key_tree(d):
+        return {k: key_tree(v) if isinstance(v, dict) else None for k, v in d.items()}
+    report = micro.dataplane_report(device=dev)
+    committed = json.loads((root / "BENCH_dataplane.json").read_text())
+    check(key_tree(report) == key_tree(committed),
+          "13d: dataplane_report's sections and keys (metric names included) equal the "
+          "committed BENCH_dataplane.json's")
+    bp, ring = report["backpressure_small_sockbuf"], report["recv_ring_buffer"]
+    cq, io = report["comm_quant_narrow_link"], report["intra_op_scaling"]
+    dr = report["drain_rehome"]
+    check(bp["verified"] and ring["pool_balanced_at_teardown"]
+          and ring["live_leases_at_teardown"] == 0 and cq["within_error_bound"]
+          and cq["raw_roundtrip_exact"] and io["bit_identical"] and dr["dropped"] == 0,
+          "13d: backpressure verified; recv pool balanced, 0 live leases; comm_quant within "
+          "its error bound, raw round trip exact; intra-op bit-identical; drain dropped 0")
+    for name, value, derived in summary_rows(report):
+        print(f"  13d: {name},{value:.4f},{derived} [{card}]", flush=True)
+    print(f"  13d: dataplane_report {json.dumps(report)}", flush=True)
+
+
+def roofline_twins_path(card: str) -> None:
+    """13e: ``roofline_report`` and ``render_experiments`` over phase 11b's
+    records: one row per cell with the dominant term and the arguments'
+    bytes 11b printed; the rendered report written to RENDERED."""
+    from repro_torch.benchmarks import render_experiments, roofline_report
+
+    root = Path(__file__).resolve().parent
+    out_dir = str(root / DRYRUN_DIR)
+    print(f"phase 13e: roofline_report and render_experiments over phase 11b's records "
+          f"[{card}]", flush=True)
+    rows = roofline_report.rows(out_dir)
+    for name, us, derived in rows:
+        print(f"  13e: {name},{us:.2f},{derived}", flush=True)
+    table = roofline_report.markdown_table("single", root=out_dir)
+    recs = {(r["arch"], r["shape"]): r for r in roofline_report.baseline_records("single", out_dir)}
+    ok = sorted(recs) == sorted(DRYRUN_CELLS) and len(rows) == len(DRYRUN_CELLS)
+    lines = table.splitlines()
+    for name, _, derived in rows:
+        rec = recs[tuple(name.split("/")[1:])]
+        args_gb = rec["memory_analysis"]["argument_bytes"] / 1e9
+        line = [ln for ln in lines if ln.startswith(f"| {rec['arch']} | {rec['shape']} |")]
+        ok = ok and derived.startswith(f"dom={rec['roofline']['dominant']} ") and (
+            len(line) == 1 and f"| {args_gb:.2f} |" in line[0])
+    check(ok, f"13e: one roofline row per 11b cell ({len(DRYRUN_CELLS)}), each with its "
+              f"record's dominant term and arguments' GB")
+    render_experiments.main([str(root / RENDERED), "--dryrun-dir", out_dir])
+    print(table, flush=True)
+
+
+def bench_twins_path(dev, card: str, op_bytes: float) -> dict:
+    """Phase 13: the benchmark twins on the card.  -> the launch counts of
+    13a and 13b."""
+    total: dict = {}
+    add_counts(total, timed("13a", bench_kernels_path, dev, card))
+    add_counts(total, timed("13b", bench_engine_path, dev, card))
+    add_counts(total, timed("13c", bench_moe_path, dev, card))
+    timed("13d", dataplane_twins_path, dev, card, op_bytes)
+    timed("13e", roofline_twins_path, card)
+    return total
+
+
+
 def timed(phase: str, fn, *args, **kwargs):
     """``fn(*args, **kwargs)``, printing the phase's wall time."""
     t0 = time.perf_counter()
@@ -2778,8 +3116,9 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
-    print(smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "nvidia-smi unavailable",
-          flush=True)
+    card = (smi.stdout.strip().splitlines()[0] if smi.returncode == 0
+            else "nvidia-smi unavailable")
+    print(card, flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -2817,12 +3156,13 @@ def main(argv=None) -> int:
     paths = [granite, timed("6", main_path, "6", "mamba2-130m", SSM_S, args.seed, dev,
                             profile=args.profile)[0]]
     train_counts, train_busy_ms = timed("7", train_path, args.seed, dev, profile=args.profile)
-    paths += [train_counts,
-              timed("8", openpose_path, args.seed, dev, profile=args.profile),
+    op_counts, op_bytes = timed("8", openpose_path, args.seed, dev, profile=args.profile)
+    paths += [train_counts, op_counts,
               timed("9", frontdoor_path, args.seed, dev, served, profile=args.profile),
               families_path(args.seed, dev, profile=args.profile),
               training_rest_path(args.seed, dev, train_busy_ms),
-              timed("12", twins_path, args.seed, dev)]
+              timed("12", twins_path, args.seed, dev),
+              timed("13", bench_twins_path, dev, card, op_bytes)]
     counts = {name: sum(p[name] for p in paths) for name in paths[0]}   # every main path's
 
     replaces = {"rmsnorm": "src/repro/kernels/rmsnorm.py:22",
