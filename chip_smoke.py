@@ -14,9 +14,10 @@ Phases (any failed check exits non-zero):
    also at the training rows, with a bf16 scale, and on rows off 16 bytes
    or of a D that is not a multiple of the vector (its scalar loop); the SSD
    scan on both of its kernels (tensor cores: bf16 at mamba2-130m's shape,
-   B 1 S 4096, ragged S, G > 1, P 48 N 96; CUDA cores: fp32, N 16, ragged
-   L), each case checked to take its branch and called twice for
-   bit-identical output; flash
+   B 1 S 4096, ragged S, G > 1, P 48 N 96, and at head dim 128 --
+   jamba-1.5-large's shape, B 1 S 4096, ragged S with G > 1 -- and P 96;
+   CUDA cores: fp32, N 16, ragged L), each case checked to take its branch
+   and called twice for bit-identical output; flash
    attention also at the training shape (B 8, S 256), a 1000-token ragged
    prompt at head dim 128 and phase 9's shapes (the engine's B 1 prefills at
    each of its prompt lengths, the sharded call's B 4 and B 8), and the
@@ -35,7 +36,8 @@ Phases (any failed check exits non-zero):
    no single PyTorch call computes the SSD scan) at the main paths' shapes
    (rmsnorm at every one of them), flash also at the training shape and the
    cross-attention, encoder and moonshot shapes, decode also at S 4096, kv_len
-   1600 and 1500 and moonshot's heads, with the wrappers' host time per call;
+   1600 and 1500 and moonshot's heads, the SSD scan also at jamba-1.5-large's
+   shape (128 heads of 128), with the wrappers' host time per call;
    the int8 quantize/dequantize kernels at every gradient leaf shape of
    granite-3-2b and mamba2-130m (fp32 and bf16 input), with rows that tie
    at k + 0.5, all-zero rows, rows of +-absmax and rows holding NaN or Inf:
@@ -130,8 +132,14 @@ Phases (any failed check exits non-zero):
 10b. the same path for llama-3.2-vision-90b (one block of 5 layers, the
    cross gate set non-zero; 1600 bf16 vision rows with every call) and
    whisper-medium whole (24 + 24 layers; 1500 bf16 frames with the prefill
-   and the score).  Phases print their wall time and, per call,
-   ``compute_s``, ``wire_s`` and the bytes sent;
+   and the score);
+10c. the same path for jamba-1.5-large-398b cut to one block of 3 of its 72
+   layers (attention + dense FFN, mamba + MoE, mamba + dense FFN; 12.9 B
+   parameters), B 2, S 1024 (four chunks of 256), a cache of 1040: every
+   scan at head dim 128 on the tensor cores; prefill and decode traced
+   (device busy, the SSD scan's share).  Phases print their wall time, the
+   peak device memory and, per call, ``compute_s``, ``wire_s`` and the
+   bytes sent;
 11. the rest of training.  11a: the chunked cross-entropy at full width,
    minicpm-2b whole (tied embeddings, 15 chunks of 8192) and
    moonshot-v1-16b-a3b cut as in phase 10 (untied, 20 chunks), B 8, S 256
@@ -191,6 +199,7 @@ The line before the last is ``{"kernels": [...]}``; the last line is
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import subprocess
 import sys
@@ -209,8 +218,9 @@ MAIN_B, MAIN_S, CACHE_LEN, N_DECODE = 2, 128, 256, 8
 TRAIN_B, TRAIN_S, TRAIN_STEPS = 8, 256, 4
 LONG_CACHE, LONG_KV = 4096, 4000       # decode at a long cache
 SSM_S = 1024                          # mamba2-130m prompt: four chunks of 256
-# mamba2-130m's scan: (B, S, H, P, G, N, chunk)
+# mamba2-130m's and jamba-1.5-large-398b's scans: (B, S, H, P, G, N, chunk)
 SSD_MAIN = (MAIN_B, SSM_S, 24, 64, 1, 128, 256)
+SSD_JAMBA = (MAIN_B, SSM_S, 128, 128, 1, 128, 256)
 OP_FRAMES, OP_STREAM, OP_WINDOW = 4, 8, 2     # phase 8: the loop, the stream, the window
 # phase 9: the engine's slots, cache, requests, tokens each and prompt lengths;
 # the sharded hidden call's rows; the map's requests
@@ -225,6 +235,11 @@ HIDDEN_B, MAP_REQS = 8, 4
 # whisper-medium whole (24 + 24 layers).  Cross-attention contexts: 1600
 # vision rows, 1500 audio frames.
 MOONSHOT_LAYERS, VISION_LAYERS, CROSS_GATE = 4, 5, 0.5
+# phase 10c: jamba-1.5-large-398b cut to one block of 3 of its 72 layers
+# (``cut_depth``: attention + dense FFN, mamba + MoE, mamba + dense FFN), B 2
+# with phase 6's 1024-token prompt, its cache long enough for the prompt, the
+# decodes and the profile's two decode steps
+JAMBA_LAYERS, JAMBA_CACHE = 3, SSM_S + 2 * N_DECODE
 # phase 11a: the chunked cross-entropy at full width (minicpm-2b whole, tied;
 # moonshot cut as in phase 10, untied) at phase 7's batch, and the rows of
 # h taken from the card for the hold against the CPU
@@ -257,22 +272,26 @@ VISION_T, AUDIO_F = 1600, 1500
 CROSS_LENS = (VISION_T, AUDIO_F)
 # phase 3 at the new paths' shapes (B, H, K, Sq, Sk, D), dtype, causal:
 # llama-vision's cross-attention, whisper's encoder, cross-attention and
-# decoder self-attention, moonshot's self-attention (16/16 heads of 128)
+# decoder self-attention, moonshot's self-attention (16/16 heads of 128),
+# llama-vision's self-attention, jamba's prefill (64/8 heads of 128, S 1024)
 FAMILY_FLASH = [((MAIN_B, 64, 8, MAIN_S, VISION_T, 128), torch.bfloat16, False),
                 ((MAIN_B, 16, 16, AUDIO_F, AUDIO_F, 64), torch.bfloat16, False),
                 ((MAIN_B, 16, 16, MAIN_S, AUDIO_F, 64), torch.bfloat16, False),
                 ((MAIN_B, 16, 16, MAIN_S, MAIN_S, 64), torch.bfloat16, True),
                 ((MAIN_B, 16, 16, MAIN_S, MAIN_S, 128), torch.bfloat16, True),
-                ((MAIN_B, 64, 8, MAIN_S, MAIN_S, 128), torch.bfloat16, True)]
+                ((MAIN_B, 64, 8, MAIN_S, MAIN_S, 128), torch.bfloat16, True),
+                ((MAIN_B, 64, 8, SSM_S, SSM_S, 128), torch.bfloat16, True)]
 # decode (B, K, G, S, D), q dtype, cache dtype: cross-attention at kv_len
 # 1600 and 1500 for every row; moonshot's, llama-vision's and whisper's
-# self-attention; moonshot in the engine (bf16 q, fp32 cache)
+# self-attention; moonshot in the engine (bf16 q, fp32 cache); jamba's
+# (G 8, head dim 128, phase 10c's cache)
 FAMILY_DECODE = [((MAIN_B, 8, 8, VISION_T, 128), torch.bfloat16, torch.bfloat16),
                  ((MAIN_B, 16, 1, AUDIO_F, 64), torch.bfloat16, torch.bfloat16),
                  ((MAIN_B, 16, 1, CACHE_LEN, 128), torch.bfloat16, torch.bfloat16),
                  ((MAIN_B, 8, 8, CACHE_LEN, 128), torch.bfloat16, torch.bfloat16),
                  ((MAIN_B, 16, 1, CACHE_LEN, 64), torch.bfloat16, torch.bfloat16),
-                 ((ENGINE_B, 16, 1, ENGINE_LEN, 128), torch.bfloat16, torch.float32)]
+                 ((ENGINE_B, 16, 1, ENGINE_LEN, 128), torch.bfloat16, torch.float32),
+                 ((MAIN_B, 8, 8, JAMBA_CACHE, 128), torch.bfloat16, torch.bfloat16)]
 
 
 def xent_kernel_shapes() -> tuple[list, list]:
@@ -542,9 +561,11 @@ def ssd_checks(gen, dev) -> float:
     within one output ulp (rtol 1e-2), since both round the same fp32 value
     to bf16 and may land on neighbouring values.  Each case must take the
     branch ``ssd_scan.tensor_core_branch`` names (bf16 at P, N multiples of
-    16 and L a multiple of 64: the tensor cores; the rest the CUDA cores);
-    the bf16 cases at B 1, S 4096 (16 chunks: the state passes along 16),
-    ragged S and G > 1 run the tensor-core kernels.  Two calls must agree
+    16 up to 128 and L a multiple of 64: the tensor cores; the rest the
+    CUDA cores); the bf16 cases at B 1, S 4096 (16 chunks: the state passes
+    along 16), ragged S and G > 1 run the tensor-core kernels, at head dim
+    64 and at 128 (jamba-1.5-large's scan, two slices of P a head), and P 96
+    (a slice of 64 and one of 32).  Two calls must agree
     bit for bit (the chunk states pass in a fixed order, whichever block of
     a (batch row, head) finishes last)."""
     from repro_torch.kernels import ops
@@ -559,7 +580,9 @@ def ssd_checks(gen, dev) -> float:
                        ((1, 5, 2, 16, 1, 16, 8), f32), ((1, 1, 24, 64, 1, 128, 256), bf16),
                        ((1, 4096, 24, 64, 1, 128, 256), bf16), ((2, 300, 4, 64, 4, 32, 128), bf16),
                        ((1, 128, 8, 32, 2, 64, 64), bf16), ((2, 200, 6, 16, 3, 16, 64), bf16),
-                       ((1, 200, 2, 48, 1, 96, 64), bf16)]:
+                       ((1, 200, 2, 48, 1, 96, 64), bf16), (SSD_JAMBA, bf16),
+                       ((1, 4096, 4, 128, 1, 128, 256), bf16), ((2, 300, 8, 128, 2, 64, 128), bf16),
+                       ((2, 256, 4, 96, 1, 128, 64), bf16)]:
         B, S, H, P, G, N, L = shape
         args = ssd_inputs(gen, dev, B, S, H, P, G, N, dt_)
         ops.reset_launch_counts()
@@ -607,33 +630,25 @@ def kernel_times(gen, dev, main_err: dict) -> dict:
     rows["flash_attention"] = flash_row(randn, MAIN_B, MAIN_S, host=True)
     # the other families' shapes: llama-vision's cross-attention (64/8
     # heads of 128 over 1600 vision rows), whisper's encoder (1500 frames)
-    # and cross-attention, moonshot's self-attention (16/16 heads of 128)
+    # and cross-attention, moonshot's self-attention (16/16 heads of 128),
+    # jamba's attention layer (64/8 heads of 128 over its 1024-token prompt)
     rows["flash_attention"]["at_other_shapes"] = [
         flash_row(randn, TRAIN_B, TRAIN_S),
         flash_row(randn, MAIN_B, MAIN_S, H=64, K=8, D=128, Sk=VISION_T, causal=False),
         flash_row(randn, MAIN_B, AUDIO_F, H=16, K=16, D=64, causal=False),
         flash_row(randn, MAIN_B, MAIN_S, H=16, K=16, D=64, Sk=AUDIO_F, causal=False),
-        flash_row(randn, MAIN_B, MAIN_S, H=16, K=16, D=128)]
+        flash_row(randn, MAIN_B, MAIN_S, H=16, K=16, D=128),
+        flash_row(randn, MAIN_B, SSM_S, H=64, K=8, D=128)]          # jamba's prefill
     rows["decode_attention"] = decode_row(randn, dev, CACHE_LEN, MAIN_S + N_DECODE, host=True)
     rows["decode_attention"]["at_other_shapes"] = [
         decode_row(randn, dev, LONG_CACHE, LONG_KV),
         decode_row(randn, dev, VISION_T, VISION_T, H=64, K=8, D=128),
         decode_row(randn, dev, AUDIO_F, AUDIO_F, H=16, K=16, D=64),
-        decode_row(randn, dev, CACHE_LEN, MAIN_S + N_DECODE, H=16, K=16, D=128)]
-    B, S, H, P, G, N, L = SSD_MAIN
-    args = ssd_inputs(gen, dev, B, S, H, P, G, N, bf16)
-    x, dtt, A, Bm, Cm = args
-    nc = -(-S // L)
-    flops = 2 * B * nc * (G * L * L * N + H * (L * L * P + 2 * L * N * P))
-    b, why = bound_ms(B * S * (H * P + 2 * G * N) * 2 + nbytes(dtt, A)       # inputs read once
-                      + B * S * H * P * 2 + B * H * P * N * 4, flops, bf16)  # y, state written once
-    rows["ssd_scan"] = dict(
-        shape=f"x {tuple(x.shape)} B/C {tuple(Bm.shape)} bf16 (strided views), chunk {L}, "
-              f"tensor cores",
-        ms=time_ms(lambda: ops.ssd_scan(*args, chunk=L), iters=20),
-        plain_ms=time_ms(lambda: ops.ssd_scan(*args, chunk=L, impl="ref"), iters=20),
-        library_ms=None, bound_ms=b, bound_by=why,   # no single PyTorch call computes SSD
-        host_us=host_us(lambda: ops.ssd_scan(*args, chunk=L)))
+        decode_row(randn, dev, CACHE_LEN, MAIN_S + N_DECODE, H=16, K=16, D=128),
+        decode_row(randn, dev, JAMBA_CACHE, SSM_S + N_DECODE, H=64, K=8, D=128)]   # jamba's
+    # mamba2-130m's scan, then jamba-1.5-large-398b's (head dim 128)
+    rows["ssd_scan"] = ssd_row(gen, dev, SSD_MAIN)
+    rows["ssd_scan"]["at_other_shapes"] = [ssd_row(gen, dev, SSD_JAMBA)]
     ops.reset_launch_counts()        # timing launches are not the main path's
     for name, r in rows.items():
         r["max_abs_err"] = main_err[name]
@@ -645,6 +660,30 @@ def kernel_times(gen, dev, main_err: dict) -> dict:
                   f"({row['bound_by']}){host}", flush=True)
         print(f"  {name}: main-shape max abs err {r['max_abs_err']:.3e}", flush=True)
     return rows
+
+
+def ssd_row(gen, dev, shape) -> dict:
+    """The scan's kernel, plain and bound times at ``shape`` (B, S, H, P,
+    G, N, chunk), bf16, and its wrapper's host time."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ssd_scan import tensor_core_branch
+
+    B, S, H, P, G, N, L = shape
+    args = ssd_inputs(gen, dev, B, S, H, P, G, N, torch.bfloat16)
+    x, dtt, A, Bm, Cm = args
+    nc = -(-S // L)
+    flops = 2 * B * nc * (G * L * L * N + H * (L * L * P + 2 * L * N * P))
+    b, why = bound_ms(B * S * (H * P + 2 * G * N) * 2 + nbytes(dtt, A)       # inputs read once
+                      + B * S * H * P * 2 + B * H * P * N * 4, flops,        # y, state written once
+                      torch.bfloat16)
+    cores = "tensor" if tensor_core_branch(x.dtype, P, N, ops.ssd_chunk_len(S, L)) else "CUDA"
+    return dict(
+        shape=f"x {tuple(x.shape)} B/C {tuple(Bm.shape)} bf16 (strided views), chunk {L}, "
+              f"{cores} cores",
+        ms=time_ms(lambda: ops.ssd_scan(*args, chunk=L), iters=20),
+        plain_ms=time_ms(lambda: ops.ssd_scan(*args, chunk=L, impl="ref"), iters=20),
+        library_ms=None, bound_ms=b, bound_by=why,   # no single PyTorch call computes SSD
+        host_us=host_us(lambda: ops.ssd_scan(*args, chunk=L)))
 
 
 def host_us(fn, n: int = 200, rounds: int = 5) -> float:
@@ -1222,18 +1261,41 @@ def per_call_counts(cfg) -> dict:
     return {"rmsnorm": rms, "flash_attention": flash, "decode_attention": dec, "ssd_scan": scan}
 
 
-def expected_counts(cfg) -> dict:
-    """Kernel launches of one prefill, N_DECODE decodes and one score
-    (``per_call_counts``); the scan on the tensor cores (bf16, P 64, N 128,
-    chunk 256)."""
+def expected_counts(cfg, seq: int) -> dict:
+    """Kernel launches of one prefill and one score of ``seq`` tokens and
+    N_DECODE decodes (``per_call_counts``); each scan on the branch
+    ``ssd_scan.tensor_core_branch`` names for the model's compute dtype,
+    head dim, state dim and chunk length at ``seq`` (the tensor cores for
+    mamba2-130m's P 64 and jamba-1.5-large's P 128 at S 1024)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ssd_scan import tensor_core_branch
+
     one = per_call_counts(cfg)
     n_fwd = 1 + N_DECODE + 1
+    scans = 2 * one["ssd_scan"]
+    tc = cfg.ssm is None or tensor_core_branch(
+        getattr(torch, cfg.compute_dtype), cfg.ssm.head_dim, cfg.ssm.d_state,
+        ops.ssd_chunk_len(seq, cfg.ssm.chunk))
     quant = {"quantize_int8": 0, "dequantize_int8": 0,      # serving quantizes on the host
              "quantize_int8_vec": 0, "quantize_int8_scalar": 0}
     return {"rmsnorm": one["rmsnorm"] * n_fwd, "flash_attention": 2 * one["flash_attention"],
             "decode_attention": N_DECODE * one["decode_attention"],
-            "ssd_scan": 2 * one["ssd_scan"], **quant, "ssd_scan_tc": 2 * one["ssd_scan"],
-            "ssd_scan_simt": 0}
+            "ssd_scan": scans, **quant, "ssd_scan_tc": scans if tc else 0,
+            "ssd_scan_simt": 0 if tc else scans}
+
+
+def cut_depth(cfg, layers: int):
+    """``cfg`` cut to ``layers`` layers, every width as published.  A
+    hybrid whose interleave block is longer than the cut (jamba-1.5-large:
+    one attention layer in 8) becomes one block of ``layers`` layers: the
+    attention layer first, then mamba layers, MoE on the odd ones as
+    published (at 3: attention + dense FFN, mamba + MoE, mamba + dense
+    FFN, each kind of layer jamba has)."""
+    from repro_torch.configs import with_overrides
+
+    if cfg.family == "hybrid" and layers < cfg.attn_every:
+        return with_overrides(cfg, num_layers=layers, attn_every=layers)
+    return with_overrides(cfg, num_layers=layers)
 
 
 def model_line(cfg) -> str:
@@ -1256,14 +1318,17 @@ def model_line(cfg) -> str:
     return f"d_model {cfg.d_model}, {mixer}, vocab {cfg.padded_vocab}"
 
 
-def main_path(phase: str, arch: str, seq: int, seed: int, dev,
-              profile: bool = False, layers: int | None = None) -> tuple[dict, dict]:
+def main_path(phase: str, arch: str, seq: int, seed: int, dev, profile: bool = False,
+              layers: int | None = None, cache_len: int = CACHE_LEN) -> tuple[dict, dict]:
     """-> (launch counts, outputs: the prefill and decode logits and the
     score loss, which phase 9 holds the facade's calls to).  ``layers``
-    cuts the depth (never the width); a VLM's vision rows go with every
-    call and an encoder-decoder's frames with the prefill and the score,
-    made on the card from ``seed`` in the compute dtype."""
-    from repro_torch.configs import get_arch, with_overrides
+    cuts the depth (never the width, ``cut_depth``); ``cache_len`` is the
+    KV cache's length, at least ``seq`` + N_DECODE; a VLM's vision rows go
+    with every call and an encoder-decoder's frames with the prefill and
+    the score, made on the card from ``seed`` in the compute dtype.  Prints
+    each call's ``compute_s`` and ``wire_s``, ``put_model``'s time and the
+    peak device memory over the phase."""
+    from repro_torch.configs import get_arch
     from repro_torch.core.cache import model_fingerprint
     from repro_torch.core.executor import DestinationExecutor, HostRuntime
     from repro_torch.core.library import make_model_library
@@ -1276,11 +1341,26 @@ def main_path(phase: str, arch: str, seq: int, seed: int, dev,
     cut = ""
     if layers is not None:
         cut = f" (cut from {cfg.num_layers}; width as published)"
-        cfg = with_overrides(cfg, num_layers=layers)
+        cfg = cut_depth(cfg, layers)
     L = cfg.num_layers
-    print(f"phase {phase}: main path, {cfg.name} at full width ({L} layers{cut}, "
-          f"{model_line(cfg)}), B {MAIN_B} S {seq}, served over TCP", flush=True)
-    dest = DestinationExecutor({"lm": make_model_library(cfg, CACHE_LEN, device=dev)},
+    if not cfg.is_attention_free:
+        check(cache_len > seq + N_DECODE,
+              f"KV cache of {cache_len} holds {seq} + {N_DECODE} tokens and one more")
+    kinds = ""
+    if cfg.family == "hybrid":
+        kinds = ", layers " + ", ".join(
+            f"{cfg.layer_kind(i)}+{'moe' if cfg.layer_has_moe(i) else 'dense'}" for i in range(L))
+    print(f"phase {phase}: main path, {cfg.name} at full width ({L} layers{cut}{kinds}, "
+          f"{model_line(cfg)}), B {MAIN_B} S {seq}, cache {cache_len}, served over TCP",
+          flush=True)
+    # an earlier phase's destination lives on in reference cycles (its
+    # threads and closures) until the collector runs: free its weights now
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  device memory allocated at the start: {torch.cuda.memory_allocated() / 1e9:.2f} GB",
+          flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    dest = DestinationExecutor({"lm": make_model_library(cfg, cache_len, device=dev)},
                                name="h100", device=dev)
     server = TCPServer(dest.handle).start()
     host = HostRuntime(TCPChannel.connect("127.0.0.1", server.port), timeout=900.0)
@@ -1343,7 +1423,7 @@ def main_path(phase: str, arch: str, seq: int, seed: int, dev,
                   f"{sent / 1e6:.3f} MB", flush=True)
         print(f"  launches on the main path: {counts}", flush=True)
 
-        want = expected_counts(cfg)
+        want = expected_counts(cfg, seq)
         check(counts == want, f"launch counts match the model's structure: {want}")
         check(all(np.isfinite(lg[..., :cfg.vocab_size]).all() for lg in logits)
               and all(lg.shape == (MAIN_B, 1, cfg.padded_vocab) for lg in logits),
@@ -1354,7 +1434,7 @@ def main_path(phase: str, arch: str, seq: int, seed: int, dev,
         toks = torch.from_numpy(tokens).to(dev)
         with torch.inference_mode(), ops.force_impl("ref"):
             plain = M.prefill(cfg, entry["params"], {"tokens": toks, **extra_dev},
-                              CACHE_LEN)[0][..., :cfg.vocab_size].float().cpu()
+                              cache_len)[0][..., :cfg.vocab_size].float().cpu()
             _, m = M.loss_fn(cfg, entry["params"], {
                 "tokens": toks, "targets": torch.from_numpy(targets).to(dev), **extra_dev})
         got = torch.from_numpy(prefill_logits[..., :cfg.vocab_size])
@@ -1374,6 +1454,8 @@ def main_path(phase: str, arch: str, seq: int, seed: int, dev,
                 entry["params"], entry["state"], {"tokens": toks, **extra_dev}))
             profile_call(f"{arch} decode", lambda: lib["decode"](
                 entry["params"], entry["state"], {"tokens": toks[:, :1], **step_dev}))
+        print(f"  peak device memory over phase {phase}: "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
         return counts, {"logits": logits, "loss": loss}
     finally:
         host.close()
@@ -2117,8 +2199,8 @@ def frontdoor_path(seed: int, dev, served: dict, profile: bool = False) -> dict:
         for fn, comp, wire in cycles:
             print(f"  {fn:8s} compute_s {comp:.5f}  wire_s {wire:.5f}", flush=True)
         print(f"  launches through the facade: {counts}", flush=True)
-        check(counts == expected_counts(cfg),
-              f"launch counts match the model's structure: {expected_counts(cfg)}")
+        want = expected_counts(cfg, MAIN_S)
+        check(counts == want, f"launch counts match the model's structure: {want}")
         check(len(logits) == len(served["logits"]) and all(
                   np.array_equal(a, b) for a, b in zip(logits, served["logits"])),
               f"prefill and {N_DECODE} decode logits bit-identical to phase 5's")
@@ -2321,7 +2403,9 @@ def families_path(seed: int, dev, profile: bool = False) -> dict:
     48 layers) through ``main_path`` over TCP, then its 4-slot engine.
     Phase 10b: llama-3.2-vision-90b at full width (one block of
     VISION_LAYERS layers) and whisper-medium whole, through ``main_path``.
-    -> the launch counts of all of them."""
+    Phase 10c: jamba-1.5-large-398b at full width (one block of
+    JAMBA_LAYERS layers), B 2, S 1024, its scans at head dim 128 on the
+    tensor cores.  -> the launch counts of all of them."""
     from repro_torch.configs import get_arch, with_overrides
 
     total = {}
@@ -2340,6 +2424,15 @@ def families_path(seed: int, dev, profile: bool = False) -> dict:
                                 profile=profile)[0])
     torch.cuda.empty_cache()
     print(f"  phase 10b wall {time.perf_counter() - t0:.1f} s", flush=True)
+    # 10c: always profiled, for the device's busy time and the scan's share
+    t0 = time.perf_counter()
+    counts = main_path("10c", "jamba-1.5-large-398b", SSM_S, seed, dev, profile=True,
+                       layers=JAMBA_LAYERS, cache_len=JAMBA_CACHE)[0]
+    check(counts["ssd_scan_tc"] == counts["ssd_scan"] > 0 and counts["ssd_scan_simt"] == 0,
+          f"every jamba scan (head dim 128) on the tensor cores: {counts['ssd_scan_tc']}")
+    add_counts(total, counts)
+    torch.cuda.empty_cache()
+    print(f"  phase 10c wall {time.perf_counter() - t0:.1f} s", flush=True)
     return total
 
 
@@ -2367,8 +2460,6 @@ def xent_and_grad_h(cfg, W, h, targets):
 def fresh_peak() -> int:
     """Collect garbage (earlier phases' cycles may hold device tensors),
     reset the peak and -> the bytes allocated now."""
-    import gc
-
     gc.collect()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -2901,8 +2992,6 @@ def bench_moe_path(dev, card: str) -> dict:
     the plain per-token loop (``moe_token_loop``) at the port's bf16
     tolerance, rows whose experts differ at a near-tie counted and left
     out."""
-    import gc
-
     from repro_torch.benchmarks import micro
     from repro_torch.configs import get_arch, with_overrides
     from repro_torch.kernels import ops
@@ -3094,6 +3183,12 @@ def profile_call(name: str, fn, top: int = 10) -> None:
             span_ms = sum(e.device_time_total for e in ranges) / 1e3
             print(f"    {span_ms:9.3f} ms  {len(ranges):5d}x  kernels under {span} "
                   f"({100 * span_ms / busy_ms:.1f}% of device busy)", flush=True)
+    ssd = [(n, t) for kname, (n, t) in by_name.items() if any(
+        k in kname for k in ("chunk_state_kernel", "chunk_scan_kernel", "ssd_scan_kernel"))]
+    if ssd:
+        ssd_ms = sum(t for _, t in ssd)
+        print(f"    {ssd_ms:9.3f} ms  {sum(n for n, _ in ssd):5d}x  the SSD scan's kernels "
+              f"({100 * ssd_ms / busy_ms:.1f}% of device busy)", flush=True)
     for kname, (n, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]:
         print(f"    {t:9.3f} ms  {n:5d}x  {kname[:100]}", flush=True)
 

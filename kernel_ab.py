@@ -15,7 +15,9 @@ checkout's own ``kernels.ops``:
   and a 4096-slot cache filled to 4000;
 * ``ssd``: ``ops.ssd_scan`` at mamba2-130m's shape (B 2, S 1024, 24 heads
   of 64, one group, d_state 128, chunk 256, bf16; x, B and C strided views
-  of one conv output, as the model hands them over);
+  of one conv output, as the model hands them over) and at
+  jamba-1.5-large-398b's (128 heads of 128, the rest alike; a tree whose
+  tensor-core branch stops at head dim 64 runs it on its CUDA-core kernel);
 * ``rmsnorm``: ``ops.rmsnorm`` at every main-path shape: granite-3-2b's
   prefill (2,128,2048), decode (2,1,2048) and training (8,256,2048) rows,
   bf16 with the fp32 scale; mamba2-130m's mixer and final norms (2,1024,768)
@@ -137,8 +139,8 @@ def measure(tree: Path, which: str) -> dict:
                 qd, kd, vd, enable_gqa=True), "", cold)
         if S == 256:
             out["decode host us"] = host_us(lambda: ops.decode_attention(q, kc, vc, lens))
-    if which == "ssd":
-        B, S, H, P, G, N, L = 2, 1024, 24, 64, 1, 128, 256
+    for tag, H, P in (("", 24, 64), (" jamba", 128, 128)) if which == "ssd" else ():
+        B, S, G, N, L = 2, 1024, 1, 128, 256
         big = randn(B, S, H * P + 2 * G * N)
         x = big[..., :H * P].unflatten(-1, (H, P))
         Bm = big[..., H * P:H * P + G * N].unflatten(-1, (G, N))
@@ -146,9 +148,9 @@ def measure(tree: Path, which: str) -> dict:
         dt = F.softplus(randn(B, S, H, dtype=torch.float32))
         A = -torch.exp(randn(H, dtype=torch.float32) * 0.5)
         for cold in (False, True):   # every kernel of the call: the scan's own
-            out["ssd_scan" + (" cold" if cold else "")] = device_ms(
+            out["ssd_scan" + tag + (" cold" if cold else "")] = device_ms(
                 lambda: ops.ssd_scan(x, dt, A, Bm, Cm, chunk=L), "", cold, iters=20)
-        out["ssd_scan host us"] = host_us(lambda: ops.ssd_scan(x, dt, A, Bm, Cm, chunk=L))
+        out[f"ssd_scan{tag} host us"] = host_us(lambda: ops.ssd_scan(x, dt, A, Bm, Cm, chunk=L))
     for shape, dt, sdt in RMS_SHAPES if which == "rmsnorm" else ():
         xr = randn(*shape, dtype=getattr(torch, dt))
         sr = randn(shape[-1], dtype=getattr(torch, sdt))

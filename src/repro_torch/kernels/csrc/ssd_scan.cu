@@ -21,22 +21,29 @@
 // Two kernels, one per branch, chosen on the host (ssd_scan.py
 // `tensor_core_branch`):
 //
-// * Tensor cores (bf16; P <= 64 and N <= 128, both multiples of 16; L a
+// * Tensor cores (bf16; P <= 128 and N <= 128, both multiples of 16; L a
 //   multiple of 64; A <= 0 and dt >= 0, as Mamba2's A = -exp(A_log) and
-//   softplus dt give): two launches.
-//   1. chunk_state_kernel, grid (chunk, head, batch), 8 warps: cum (kept
-//      in fp32 scratch with dt for the scan), w = exp(cum_last - cum) * dt,
-//      and S_c = (x * w)^T B on mma.sync m16n8k16 over a three-stage ring
-//      of tiles, written to fp32 scratch with the chunk's decay
-//      exp(cum_last).  The last block of each (b, h) to finish -- found by
-//      an acquire-release integer counter, never by waiting -- runs the
-//      nc-step state recurrence in fp32 and writes each chunk's entering
-//      state as a bf16 hi/lo pair and the final state.  (A third launch
-//      would add a kernel boundary, about 3 us, and host time on the
-//      host-bound serving path; the state passing in the scan's prologue
-//      instead, every block of a chunk redoing it, measured slower.)
-//   2. chunk_scan_kernel, one block per (64-row tile, chunk, head, batch),
-//      the tiles with the most work first: C_i B_j^T on the tensor cores
+//   softplus dt give): two launches.  The columns of P are independent (y[:,
+//   p] needs only x[:, p] and row p of the state), so each block takes one
+//   slice of at most 64 of them: a head of 128 (jamba-1.5-large) is two
+//   slices, each with the registers and shared memory of a head of 64, and
+//   each recomputing its own C_i B_j^T and cumsum.  Both kernels are
+//   templates on kSliced: P <= 64 (one slice) keeps the unsliced index
+//   arithmetic, with P read from the kernel's arguments, so slicing adds
+//   nothing to that path (sliced, the chunk-state kernel spills more).
+//   1. chunk_state_kernel, grid (slice x chunk, head, batch), 8 warps: cum
+//      (kept in fp32 scratch with dt for the scan), w = exp(cum_last - cum)
+//      * dt, and S_c = (x * w)^T B on mma.sync m16n8k16 over a three-stage
+//      ring of tiles, written to fp32 scratch with the chunk's decay
+//      exp(cum_last).  The last block of each (b, h, slice) to finish --
+//      found by an acquire-release integer counter, never by waiting -- runs
+//      the nc-step state recurrence of its rows in fp32 and writes each
+//      chunk's entering state as a bf16 hi/lo pair and the final state.  (A
+//      third launch would add a kernel boundary, about 3 us, and host time
+//      on the host-bound serving path; the state passing in the scan's
+//      prologue instead, every block of a chunk redoing it, measured slower.)
+//   2. chunk_scan_kernel, one block per (64-row tile, chunk, head, batch,
+//      slice), the tiles with the most work first: C_i B_j^T on the tensor cores
 //      from C fragments held in registers, the decay and dt applied to the
 //      accumulator in registers, then S x_j and C_i in(c)^T on the tensor
 //      cores; tiles above the diagonal are never touched.  On the diagonal
@@ -331,7 +338,8 @@ constexpr int kStateThreads = 256;  // chunk states: 8 warps, 16 rows of P x 64 
 constexpr int kScanThreads = 128;   // chunk scan: 4 warps, 16 rows of the 64-row tile each
 constexpr int kTile = 64;           // positions per tile
 constexpr int kStages = 3;          // chunk states: tiles in flight
-constexpr int kMaxP = 64, kMaxN = 128, kMaxL = 2048;
+constexpr int kSliceP = 64;         // columns of P per block
+constexpr int kMaxP = 128, kMaxN = 128, kMaxL = 2048;
 constexpr float kLog2e = 1.4426950408889634f;
 
 struct Args {
@@ -345,12 +353,12 @@ struct Args {
   float* chunk_st;     // (B*H, nc, P, N) fp32: each chunk's own state S_c
   float* chunk_cum;    // (B*H, nc, L): cum, for the chunk scan
   float* chunk_dt;     // (B*H, nc, L): dt (0 past S)
-  float* chunk_decay;  // (B*H, nc): exp(cum_last)
+  float* chunk_decay;  // (B*H, ns, nc): exp(cum_last), one copy per slice
   bf16* in_hi;         // (B*H, nc, P, N): the state entering each chunk, hi
   bf16* in_lo;         //   and lo halves (chunk 0's are never written or read)
-  int* counter;        // (B*H): zero on entry and on return
+  int* counter;        // (B*H, ns): zero on entry and on return
   long long S;
-  int batch, H, P, G, N, L, nc;
+  int batch, H, P, G, N, L, nc, ns;  // ns: slices of P
   long long xs_b, xs_s, xs_h;
   long long dts_b, dts_s, dts_h;
   long long bs_b, bs_s, bs_g;
@@ -415,15 +423,19 @@ __device__ __forceinline__ void copy_rows(bf16* dst, int pitch, const bf16* src,
 // the scan's partials and a flag (keeps the tiles on 16 bytes)
 __host__ __device__ inline size_t float_words(int L) { return 2 * (size_t)L + 16; }
 
-// ---- 1. chunk states, and the state passing in the last block of a (b, h)
+// ---- 1. chunk states, and the state passing in the last block of a (b, h, slice)
+template <bool kSliced>
 __global__ void __launch_bounds__(kStateThreads, 2) chunk_state_kernel(const Args a) {
   using namespace avec::hopper;
   constexpr int NT = kStateThreads;
-  const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int c = kSliced ? blockIdx.x % a.nc : blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int sl = kSliced ? blockIdx.x / a.nc : 0;
   const int g = h / (a.H / a.G), bh = b * a.H + h;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int gq = lane >> 2, tq = lane & 3;
-  const int P = a.P, N = a.N, L = a.L, NP = N + 8, PP = P + 8;
+  // this block's columns of P: p0 .. p0 + P - 1
+  const int p0 = sl * kSliceP, P = kSliced ? min(kSliceP, a.P - p0) : a.P;
+  const int N = a.N, L = a.L, NP = N + 8, PP = P + 8;
   const long long s0 = (long long)c * L;
   const int len = (int)min((long long)L, a.S - s0);
 
@@ -435,7 +447,7 @@ __global__ void __launch_bounds__(kStateThreads, 2) chunk_state_kernel(const Arg
   bf16* Wh = Bs + kStages * kTile * NP;                           // [64][PP] (x * w) hi
   bf16* Wl = Wh + kTile * PP;                                     // [64][PP] (x * w) lo
 
-  const bf16* xb = a.x + b * a.xs_b + h * a.xs_h + s0 * a.xs_s;
+  const bf16* xb = a.x + b * a.xs_b + h * a.xs_h + s0 * a.xs_s + p0;
   const bf16* Bb = a.Bm + b * a.bs_b + g * a.bs_g + s0 * a.bs_s;
   const int nt = (len + kTile - 1) / kTile;
   // a ring of kStages tiles, two ahead; every step commits one group
@@ -454,21 +466,26 @@ __global__ void __launch_bounds__(kStateThreads, 2) chunk_state_kernel(const Arg
 
   chunk_cumsum<NT>(a.dt + b * a.dts_b + h * a.dts_h, a.dts_s, s0, len, L, a.A[h], cum, wv, part);
   const float cum_last = cum[L - 1];
-  const long long cl = ((long long)bh * a.nc + c) * L;  // this chunk's cum and dt, for the scan
+  // this chunk's cum and dt, for the scan (slice 0's copy: every slice
+  // computes the same values)
+  const long long cl = ((long long)bh * a.nc + c) * L;
   for (int l = tid; l < L; l += NT) {
-    a.chunk_cum[cl + l] = cum[l];
-    a.chunk_dt[cl + l] = wv[l];
+    if (sl == 0) {
+      a.chunk_cum[cl + l] = cum[l];
+      a.chunk_dt[cl + l] = wv[l];
+    }
     wv[l] = expf(cum_last - cum[l]) * wv[l];
   }
-  if (tid == 0) a.chunk_decay[(long long)bh * a.nc + c] = expf(cum_last);
+  const int bhs = kSliced ? bh * a.ns + sl : bh;  // this (b, h, slice)
+  if (tid == 0) a.chunk_decay[(long long)bhs * a.nc + c] = expf(cum_last);
 
-  // S_c = (x * w)^T B: warp w owns rows p0..p0+15 of P and columns
+  // S_c = (x * w)^T B: warp w owns rows pw..pw+15 of the slice and columns
   // n0..n0+63 of N
   float acc[8][4];
 #pragma unroll
   for (int n = 0; n < 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  const int p0 = (warp & 3) * 16, n0 = (warp >> 2) * 64;
-  const bool active = p0 < P && n0 < N;
+  const int pw = (warp & 3) * 16, n0 = (warp >> 2) * 64;
+  const bool active = pw < P && n0 < N;
   for (int jt = 0; jt < nt; ++jt) {
     const int buf = jt % kStages;
     load_tile(jt + 2);
@@ -493,7 +510,7 @@ __global__ void __launch_bounds__(kStateThreads, 2) chunk_state_kernel(const Arg
     __syncthreads();
     if (active) {
       const bf16* bt = Bs + buf * kTile * NP;
-      const int ac = p0 + (((lane >> 3) & 1) << 3), bcol = n0 + ((lane >> 4) << 3);
+      const int ac = pw + (((lane >> 3) & 1) << 3), bcol = n0 + ((lane >> 4) << 3);
 #pragma unroll
       for (int kk = 0; kk < kTile / 16; ++kk) {
         // A[p][pos] = (x w)[pos][p], stored by position: transposed
@@ -524,48 +541,50 @@ __global__ void __launch_bounds__(kStateThreads, 2) chunk_state_kernel(const Arg
     __syncthreads();  // tile jt's buffers are refilled on the next step
   }
 
-  const long long PN = (long long)P * N;
-  float* st = a.chunk_st + ((long long)bh * a.nc + c) * PN;
+  // (P, N) states of the whole head; this slice's rows start at p0 * N
+  const long long PN = (long long)a.P * N, SN = (long long)P * N, off = (long long)p0 * N;
+  float* st = a.chunk_st + ((long long)bh * a.nc + c) * PN + off;
   if (active) {
 #pragma unroll
     for (int n = 0; n < 8; ++n) {
       const int col = n0 + n * 8 + 2 * tq;
       if (col >= N) continue;
-      *reinterpret_cast<float2*>(st + (p0 + gq) * N + col) = make_float2(acc[n][0], acc[n][1]);
-      *reinterpret_cast<float2*>(st + (p0 + gq + 8) * N + col) = make_float2(acc[n][2], acc[n][3]);
+      *reinterpret_cast<float2*>(st + (pw + gq) * N + col) = make_float2(acc[n][0], acc[n][1]);
+      *reinterpret_cast<float2*>(st + (pw + gq + 8) * N + col) = make_float2(acc[n][2], acc[n][3]);
     }
   }
 
-  // the last block of this (b, h) to arrive passes the state along the
-  // chunks: the barrier orders every thread's S_c before thread 0's
-  // release, and thread 0's acquire orders the other blocks' S_c and
-  // decays before the barrier
+  // the last block of this (b, h, slice) to arrive passes the slice's rows
+  // of the state along the chunks: the barrier orders every thread's S_c
+  // before thread 0's release, and thread 0's acquire orders the other
+  // blocks' S_c and decays before the barrier
   int* is_last = reinterpret_cast<int*>(part + 8);
+  int* count = a.counter + bhs;
   __syncthreads();
   if (tid == 0) {
     int prev;
     asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], 1;\n"
-                 : "=r"(prev) : "l"(a.counter + bh) : "memory");
+                 : "=r"(prev) : "l"(count) : "memory");
     *is_last = prev == a.nc - 1;
-    if (*is_last) a.counter[bh] = 0;  // every block of this call has arrived
+    if (*is_last) *count = 0;  // every block of this call has arrived
   }
   __syncthreads();
   if (!*is_last) return;
   // in(c+1) = in(c) * decay(c) + S_c over 8 float4 groups a thread at a
   // time, the next chunk's S read while this chunk's in(c) is stored
-  const float* __restrict__ stb = a.chunk_st + (long long)bh * a.nc * PN;
-  const float* __restrict__ dec = a.chunk_decay + (long long)bh * a.nc;
-  bf16* __restrict__ hib = a.in_hi + (long long)bh * a.nc * PN;
-  bf16* __restrict__ lob = a.in_lo + (long long)bh * a.nc * PN;
-  float* __restrict__ fin = a.state + (long long)bh * PN;
+  const float* __restrict__ stb = a.chunk_st + (long long)bh * a.nc * PN + off;
+  const float* __restrict__ dec = a.chunk_decay + (long long)bhs * a.nc;
+  bf16* __restrict__ hib = a.in_hi + (long long)bh * a.nc * PN + off;
+  bf16* __restrict__ lob = a.in_lo + (long long)bh * a.nc * PN + off;
+  float* __restrict__ fin = a.state + (long long)bh * PN + off;
   constexpr int kGroups = 8;
-  for (long long e0 = 4 * tid; e0 < PN; e0 += 4 * NT * kGroups) {
+  for (long long e0 = 4 * tid; e0 < SN; e0 += 4 * NT * kGroups) {
     float4 s[kGroups], u[kGroups];
 #pragma unroll
     for (int k = 0; k < kGroups; ++k) {
       const long long e = e0 + 4LL * NT * k;
       s[k] = make_float4(0.f, 0.f, 0.f, 0.f);
-      u[k] = e < PN ? __ldcg(reinterpret_cast<const float4*>(stb + e)) : s[k];
+      u[k] = e < SN ? __ldcg(reinterpret_cast<const float4*>(stb + e)) : s[k];
     }
     for (int cc = 0; cc < a.nc; ++cc) {
       const float d = __ldcg(dec + cc);
@@ -573,14 +592,14 @@ __global__ void __launch_bounds__(kStateThreads, 2) chunk_state_kernel(const Arg
 #pragma unroll
       for (int k = 0; k < kGroups; ++k) {
         const long long e = e0 + 4LL * NT * k;
-        next[k] = cc + 1 < a.nc && e < PN
+        next[k] = cc + 1 < a.nc && e < SN
                       ? __ldcg(reinterpret_cast<const float4*>(stb + (cc + 1) * PN + e))
                       : u[k];
       }
 #pragma unroll
       for (int k = 0; k < kGroups; ++k) {
         const long long e = e0 + 4LL * NT * k;
-        if (e >= PN) continue;
+        if (e >= SN) continue;
         if (cc > 0) {
           uint32_t h0, l0, h1, l1;
           split_bf16(s[k].x, s[k].y, h0, l0);
@@ -598,26 +617,32 @@ __global__ void __launch_bounds__(kStateThreads, 2) chunk_state_kernel(const Arg
 #pragma unroll
     for (int k = 0; k < kGroups; ++k) {
       const long long e = e0 + 4LL * NT * k;
-      if (e < PN) *reinterpret_cast<float4*>(fin + e) = s[k];
+      if (e < SN) *reinterpret_cast<float4*>(fin + e) = s[k];
     }
   }
 }
 
-// ---- 2. chunk scan: one 64-row tile of y of one chunk of one (b, h)
+// ---- 2. chunk scan: one 64-row tile of y of one chunk of one (b, h, slice)
+template <bool kSliced>
 __global__ void __launch_bounds__(kScanThreads) chunk_scan_kernel(const Args a) {
   using namespace avec::hopper;
   constexpr int NT = kScanThreads;
   // the block index, slowest first: row tile (the last, with the most
-  // column tiles, first), batch row, head, chunk
-  const long long per_tile = (long long)a.nc * a.H * a.batch;
+  // column tiles, first), batch row, head, chunk, slice (the slices of a
+  // tile side by side: they read the same rows of B and C)
+  const int ns = kSliced ? a.ns : 1;
+  const long long per_tile = (long long)ns * a.nc * a.H * a.batch;
   const int it = a.L / kTile - 1 - (int)(blockIdx.x / per_tile);
   const long long rest = blockIdx.x % per_tile;
-  const int c = (int)(rest % a.nc), h = (int)((rest / a.nc) % a.H);
-  const int b = (int)(rest / ((long long)a.nc * a.H));
+  const int sl = (int)(rest % ns), c = (int)((rest / ns) % a.nc);
+  const int h = (int)((rest / ((long long)ns * a.nc)) % a.H);
+  const int b = (int)(rest / ((long long)ns * a.nc * a.H));
   const int g = h / (a.H / a.G), bh = b * a.H + h;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int gq = lane >> 2, tq = lane & 3;
-  const int P = a.P, N = a.N, L = a.L, NP = N + 8, PP = P + 8;
+  // this block's columns of P: p0 .. p0 + P - 1
+  const int p0 = sl * kSliceP, P = kSliced ? min(kSliceP, a.P - p0) : a.P;
+  const int N = a.N, L = a.L, NP = N + 8, PP = P + 8;
   const long long s0 = (long long)c * L;
   const int len = (int)min((long long)L, a.S - s0);
   const int i0 = it * kTile;
@@ -631,10 +656,10 @@ __global__ void __launch_bounds__(kScanThreads) chunk_scan_kernel(const Args a) 
   bf16* Bs = Sl + P * NP;                                         // [2][64][NP] B tiles
   bf16* Xs = Bs + 2 * kTile * NP;                                 // [2][64][PP] x tiles
 
-  const bf16* xb = a.x + b * a.xs_b + h * a.xs_h + s0 * a.xs_s;
+  const bf16* xb = a.x + b * a.xs_b + h * a.xs_h + s0 * a.xs_s + p0;
   const bf16* Bb = a.Bm + b * a.bs_b + g * a.bs_g + s0 * a.bs_s;
   const bf16* Cb = a.Cm + b * a.cs_b + g * a.cs_g + s0 * a.cs_s;
-  const long long PN = (long long)P * N;
+  const long long PN = (long long)a.P * N, off = (long long)p0 * N;
   // cum and dt of the chunk, as the chunk-state kernel left them
   const long long cl = ((long long)bh * a.nc + c) * L;
   for (int e = tid; e < L / 4; e += NT) {
@@ -643,8 +668,8 @@ __global__ void __launch_bounds__(kScanThreads) chunk_scan_kernel(const Args a) 
   }
   copy_rows<NT>(Cs, NP, Cb + i0 * a.cs_s, a.cs_s, kTile, len - i0, N);
   if (c > 0) {
-    copy_rows<NT>(Sh, NP, a.in_hi + ((long long)bh * a.nc + c) * PN, N, P, P, N);
-    copy_rows<NT>(Sl, NP, a.in_lo + ((long long)bh * a.nc + c) * PN, N, P, P, N);
+    copy_rows<NT>(Sh, NP, a.in_hi + ((long long)bh * a.nc + c) * PN + off, N, P, P, N);
+    copy_rows<NT>(Sl, NP, a.in_lo + ((long long)bh * a.nc + c) * PN + off, N, P, P, N);
   }
   cp_async_commit();
   auto load_tile = [&](int jt, int buf) {
@@ -676,9 +701,9 @@ __global__ void __launch_bounds__(kScanThreads) chunk_scan_kernel(const Args a) 
   const int ia = i0 + m0 + gq, ib = ia + 8;  // this thread's two rows in the chunk
   const float ca = cum[ia], cb = cum[ib];
   __syncthreads();  // the column factors are in
-  float acc[kMaxP / 8][4];
+  float acc[kSliceP / 8][4];
 #pragma unroll
-  for (int n = 0; n < kMaxP / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  for (int n = 0; n < kSliceP / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
   // ldmatrix row and column of this lane for a B operand stored by its
   // n index (as is) and by its k index (transposed)
   const int br = (lane & 7) + ((lane >> 4) << 3), bc = ((lane >> 3) & 1) << 3;
@@ -690,21 +715,21 @@ __global__ void __launch_bounds__(kScanThreads) chunk_scan_kernel(const Args a) 
     for (int kk = 0; kk < kMaxN / 16; ++kk) {
       if (kk * 16 >= N) continue;
       // B[n][p] = in[p][n], stored by p: as is; p-tiles 2 p2, 2 p2 + 1
-      uint32_t bh4[kMaxP / 16][4], bl4[kMaxP / 16][4];
+      uint32_t bh4[kSliceP / 16][4], bl4[kSliceP / 16][4];
 #pragma unroll
-      for (int p2 = 0; p2 < kMaxP / 16; ++p2) {
+      for (int p2 = 0; p2 < kSliceP / 16; ++p2) {
         if (p2 * 16 >= P) continue;
         ldmatrix_x4<false>(bh4[p2], Sh + (p2 * 16 + br) * NP + kk * 16 + bc);
         ldmatrix_x4<false>(bl4[p2], Sl + (p2 * 16 + br) * NP + kk * 16 + bc);
       }
 #pragma unroll
-      for (int p2 = 0; p2 < kMaxP / 16; ++p2) {
+      for (int p2 = 0; p2 < kSliceP / 16; ++p2) {
         if (p2 * 16 >= P) continue;
         mma_bf16_16816(acc[2 * p2], cf[kk], bh4[p2][0], bh4[p2][1]);
         mma_bf16_16816(acc[2 * p2 + 1], cf[kk], bh4[p2][2], bh4[p2][3]);
       }
 #pragma unroll
-      for (int p2 = 0; p2 < kMaxP / 16; ++p2) {
+      for (int p2 = 0; p2 < kSliceP / 16; ++p2) {
         if (p2 * 16 >= P) continue;
         mma_bf16_16816(acc[2 * p2], cf[kk], bl4[p2][0], bl4[p2][1]);
         mma_bf16_16816(acc[2 * p2 + 1], cf[kk], bl4[p2][2], bl4[p2][3]);
@@ -712,7 +737,7 @@ __global__ void __launch_bounds__(kScanThreads) chunk_scan_kernel(const Args a) 
     }
     const float ea = expf(ca), eb = expf(cb);
 #pragma unroll
-    for (int n = 0; n < kMaxP / 8; ++n) {
+    for (int n = 0; n < kSliceP / 8; ++n) {
       acc[n][0] *= ea;
       acc[n][1] *= ea;
       acc[n][2] *= eb;
@@ -782,23 +807,23 @@ __global__ void __launch_bounds__(kScanThreads) chunk_scan_kernel(const Args a) 
     // the A fragment of one 16-wide k step)
 #pragma unroll
     for (int k2 = 0; k2 < kTile / 16; ++k2) {
-      uint32_t ah[4], al[4], bb[kMaxP / 16][4];
+      uint32_t ah[4], al[4], bb[kSliceP / 16][4];
       // B[j][p] = x[j][p], stored by j: transposed; p-tiles 2 p2, 2 p2 + 1
 #pragma unroll
-      for (int p2 = 0; p2 < kMaxP / 16; ++p2)
+      for (int p2 = 0; p2 < kSliceP / 16; ++p2)
         if (p2 * 16 < P) ldmatrix_x4<true>(bb[p2], xt + (k2 * 16 + tr) * PP + p2 * 16 + tcol);
       split_bf16(s[2 * k2][0], s[2 * k2][1], ah[0], al[0]);
       split_bf16(s[2 * k2][2], s[2 * k2][3], ah[1], al[1]);
       split_bf16(s[2 * k2 + 1][0], s[2 * k2 + 1][1], ah[2], al[2]);
       split_bf16(s[2 * k2 + 1][2], s[2 * k2 + 1][3], ah[3], al[3]);
 #pragma unroll
-      for (int p2 = 0; p2 < kMaxP / 16; ++p2) {
+      for (int p2 = 0; p2 < kSliceP / 16; ++p2) {
         if (p2 * 16 >= P) continue;
         mma_bf16_16816(acc[2 * p2], ah, bb[p2][0], bb[p2][1]);
         mma_bf16_16816(acc[2 * p2 + 1], ah, bb[p2][2], bb[p2][3]);
       }
 #pragma unroll
-      for (int p2 = 0; p2 < kMaxP / 16; ++p2) {
+      for (int p2 = 0; p2 < kSliceP / 16; ++p2) {
         if (p2 * 16 >= P) continue;
         mma_bf16_16816(acc[2 * p2], al, bb[p2][0], bb[p2][1]);
         mma_bf16_16816(acc[2 * p2 + 1], al, bb[p2][2], bb[p2][3]);
@@ -807,9 +832,9 @@ __global__ void __launch_bounds__(kScanThreads) chunk_scan_kernel(const Args a) 
     __syncthreads();  // tile jt's buffers are refilled two steps on
   }
 
-  bf16* yb = a.y + b * a.ys_b + h * a.ys_h + s0 * a.ys_s;
+  bf16* yb = a.y + b * a.ys_b + h * a.ys_h + s0 * a.ys_s + p0;
 #pragma unroll
-  for (int n = 0; n < kMaxP / 8; ++n) {
+  for (int n = 0; n < kSliceP / 8; ++n) {
     if (n * 8 >= P) continue;
     const int p = n * 8 + 2 * tq;
     if (ia < len)
@@ -821,33 +846,41 @@ __global__ void __launch_bounds__(kScanThreads) chunk_scan_kernel(const Args a) 
   }
 }
 
-int launch(const Args& a, cudaStream_t stream) {
-  const size_t NP = a.N + 8, PP = a.P + 8, f = float_words(a.L) * sizeof(float);
-  const size_t smem_state =
-      f + ((kStages + 2) * kTile * PP + kStages * kTile * NP) * sizeof(bf16);
-  const size_t smem_scan = f + (3 * kTile * NP + 2 * a.P * NP + 2 * kTile * PP) * sizeof(bf16);
-  // the opt-in to more than 48 KB of shared memory, made once per device
-  // and size rather than as a runtime API call on every scan
+template <bool kSliced>
+int launch(const Args& a, size_t smem_state, size_t smem_scan, cudaStream_t stream) {
+  // the opt-in to more than 48 KB of shared memory, made once per kernel,
+  // device and size rather than as a runtime API call on every scan
   constexpr int kMaxDevices = 64;
   static size_t state_set[kMaxDevices], scan_set[kMaxDevices];
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess && (dev >= kMaxDevices || smem_state > state_set[dev])) {
-    err = avec::allow_smem(chunk_state_kernel, smem_state);
+    err = avec::allow_smem(chunk_state_kernel<kSliced>, smem_state);
     if (err == cudaSuccess && dev < kMaxDevices) state_set[dev] = smem_state;
   }
   if (err == cudaSuccess && (dev >= kMaxDevices || smem_scan > scan_set[dev])) {
-    err = avec::allow_smem(chunk_scan_kernel, smem_scan);
+    err = avec::allow_smem(chunk_scan_kernel<kSliced>, smem_scan);
     if (err == cudaSuccess && dev < kMaxDevices) scan_set[dev] = smem_scan;
   }
   if (err != cudaSuccess) return (int)err;
-  chunk_state_kernel<<<dim3((unsigned)a.nc, (unsigned)a.H, (unsigned)a.batch), kStateThreads,
-                       smem_state, stream>>>(a);
+  chunk_state_kernel<kSliced><<<dim3((unsigned)(a.ns * a.nc), (unsigned)a.H,
+                                     (unsigned)a.batch), kStateThreads, smem_state, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const long long blocks = (long long)(a.L / kTile) * a.nc * a.H * a.batch;
-  chunk_scan_kernel<<<(unsigned)blocks, kScanThreads, smem_scan, stream>>>(a);
+  const long long blocks = (long long)(a.L / kTile) * a.ns * a.nc * a.H * a.batch;
+  chunk_scan_kernel<kSliced><<<(unsigned)blocks, kScanThreads, smem_scan, stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+int launch(const Args& a, cudaStream_t stream) {
+  // the widest slice's shared memory
+  const size_t PS = a.P < kSliceP ? a.P : kSliceP, NP = a.N + 8, PP = PS + 8;
+  const size_t f = float_words(a.L) * sizeof(float);
+  const size_t smem_state =
+      f + ((kStages + 2) * kTile * PP + kStages * kTile * NP) * sizeof(bf16);
+  const size_t smem_scan = f + (3 * kTile * NP + 2 * PS * NP + 2 * kTile * PP) * sizeof(bf16);
+  return a.ns > 1 ? launch<true>(a, smem_state, smem_scan, stream)
+                  : launch<false>(a, smem_state, smem_scan, stream);
 }
 
 }  // namespace tc
@@ -880,10 +913,11 @@ extern "C" int avec_ssd_scan(const void* x, const void* dt, const void* A, const
 }
 
 // The tensor-core branch (see the note at the top): bf16 x, B, C with rows
-// on 16 bytes; P <= 64 and N <= 128, multiples of 16; L a multiple of 64 up
-// to 2048.  Scratch: chunk_st B*H*nc*(P*N + 2*L + 1) floats (the chunk
-// states, then cum, dt and the decays), in_hi and in_lo B*H*nc*P*N bf16
-// each, counter B*H ints, zero on entry and on return.
+// on 16 bytes; P <= 128 and N <= 128, multiples of 16; L a multiple of 64
+// up to 2048; ns = ceil(P / 64) slices of P.  Scratch: chunk_st
+// B*H*nc*(P*N + 2*L + ns) floats (the chunk states, then cum, dt and the
+// decays), in_hi and in_lo B*H*nc*P*N bf16 each, counter B*H*ns ints, zero
+// on entry and on return.
 extern "C" int avec_ssd_scan_tc(const void* x, const void* dt, const void* A, const void* Bm,
                                 const void* Cm, void* y, void* state, void* chunk_st,
                                 void* in_hi, void* in_lo, void* counter, int batch,
@@ -899,7 +933,8 @@ extern "C" int avec_ssd_scan_tc(const void* x, const void* dt, const void* A, co
     return avec::kUnsupported;
   if (batch == 0) return 0;
   const long long nc = (S + L - 1) / L;
-  if (nc * H * batch * (L / kTile) > 0x7fffffffLL) return avec::kUnsupported;
+  const int ns = (P + tc::kSliceP - 1) / tc::kSliceP;
+  if (ns * nc * H * batch * (L / kTile) > 0x7fffffffLL) return avec::kUnsupported;
   const long long states = (long long)batch * H * nc * P * N;
   using tc::bf16;
   float* f32 = static_cast<float*>(chunk_st);
@@ -909,7 +944,7 @@ extern "C" int avec_ssd_scan_tc(const void* x, const void* dt, const void* A, co
              static_cast<const bf16*>(Cm), static_cast<bf16*>(y), static_cast<float*>(state),
              f32, f32 + states, f32 + states + cums, f32 + states + 2 * cums,
              static_cast<bf16*>(in_hi), static_cast<bf16*>(in_lo), static_cast<int*>(counter),
-             S, batch, H, P, G, N, L, (int)nc, xs_b, xs_s, xs_h, dts_b, dts_s, dts_h, bs_b, bs_s,
+             S, batch, H, P, G, N, L, (int)nc, ns, xs_b, xs_s, xs_h, dts_b, dts_s, dts_h, bs_b, bs_s,
              bs_g, cs_b, cs_s, cs_g, ys_b, ys_s, ys_h};
   return tc::launch(a, static_cast<cudaStream_t>(stream));
 }

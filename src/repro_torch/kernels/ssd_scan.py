@@ -6,14 +6,17 @@ shapes (mamba2-130m: B 2, S 1024, H 24, P 64, G 1, N 128, chunk 256): about
 15 MB in and out against 3.4 GFLOP.  Two hand-written kernels, chosen on the
 host by :func:`tensor_core_branch` from the dtype and the shape:
 
-* the tensor-core branch (bf16, P and N multiples of 16 up to 64 and 128,
-  L a multiple of 64; A <= 0 and dt >= 0, as Mamba2's A = -exp(A_log) and
+* the tensor-core branch (bf16, P and N multiples of 16 up to 128, L a
+  multiple of 64; A <= 0 and dt >= 0, as Mamba2's A = -exp(A_log) and
   softplus dt give, since the decay is factored on that condition): the
   chunks in parallel, in the published SSD
   decomposition -- chunk states (the state passing in the last block of
-  each (batch row, head), found by a counter), then the chunk scan --
-  with every product on ``mma.sync``; the fp32 operands (decayed scores,
-  x * w, the entering state) enter as bf16 hi/lo pairs.  Two launches;
+  each (batch row, head, slice), found by a counter), then the chunk scan
+  -- with every product on ``mma.sync``; the fp32 operands (decayed
+  scores, x * w, the entering state) enter as bf16 hi/lo pairs.  A block
+  takes one slice of at most ``TC_SLICE_P`` columns of P (the columns are
+  independent), so jamba-1.5-large's head dim 128 runs as two slices
+  (:func:`tc_slices`), each recomputing its C B^T.  Two launches;
   fp32 scratch for the chunk states, cum and dt, bf16 scratch for the
   entering states and int32 counters, kept per device and reused from call
   to call (calls on one device must therefore run on one stream, one after
@@ -44,7 +47,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import ssd_scan as ssd_scan_plain
 
-__all__ = ["ssd_scan_cuda", "ssd_scan_plain", "tensor_core_branch", "launches",
+__all__ = ["ssd_scan_cuda", "ssd_scan_plain", "tensor_core_branch", "tc_slices", "launches",
            "launches_tc", "launches_simt"]
 
 #: calls launched so far, either branch (reset by ``ops.reset_launch_counts``)
@@ -55,7 +58,8 @@ launches_tc = 0
 launches_simt = 0
 
 TC_TILE = 64                       # positions per tile of the tensor-core kernels
-TC_MAX_P, TC_MAX_N, TC_MAX_L = 64, 128, 2048
+TC_MAX_P, TC_MAX_N, TC_MAX_L = 128, 128, 2048
+TC_SLICE_P = 64                    # columns of P per block of the tensor-core kernels
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = [_P] * 7 + [_I] * 4 + [_L] + [_I] * 5 + [_L] * 15 + [_P]
@@ -67,9 +71,15 @@ def tensor_core_branch(dtype, P: int, N: int, L: int) -> bool:
     """True when a scan of x, B and C in ``dtype`` with head dim P, state
     dim N and chunk length L takes the tensor-core kernels: bf16 (fp32
     stays on the CUDA cores: TF32 would break the 2e-4 hold), P and N
-    multiples of 16 up to 64 and 128, L a multiple of 64 up to 2048."""
+    multiples of 16 up to 128, L a multiple of 64 up to 2048."""
     return (dtype == torch.bfloat16 and P % 16 == 0 and 0 < P <= TC_MAX_P
             and N % 16 == 0 and 0 < N <= TC_MAX_N and L % TC_TILE == 0 and 0 < L <= TC_MAX_L)
+
+
+def tc_slices(P: int) -> int:
+    """Slices of P the tensor-core kernels split a head into: one block per
+    ``TC_SLICE_P`` columns (the last slice may be narrower)."""
+    return -(-P // TC_SLICE_P)
 
 
 def ssd_scan_cuda(x, dt, A, Bm, Cm, *, chunk: int):
@@ -96,10 +106,10 @@ def _launch(x, dt, A, Bm, Cm, chunk, stream):
         if dt.dtype != torch.float32:
             raise TypeError(f"ssd_scan: dt must be float32, not {dt.dtype}")
         x, Bm, Cm = (_build.aligned_rows(t) for t in (x, Bm, Cm))
-        nc = -(-S // chunk)
+        nc, ns = -(-S // chunk), tc_slices(P)
         n_states = B * H * nc * P * N
-        counter, f32, b16 = _buffers(x.device, B * H, n_states + B * H * nc * (2 * chunk + 1),
-                                     2 * n_states)
+        counter, f32, b16 = _buffers(x.device, B * H * ns,
+                                     n_states + B * H * nc * (2 * chunk + ns), 2 * n_states)
         fn = _build.function("avec_ssd_scan_tc", _TC_ARGTYPES)
         rc = fn(x.data_ptr(), dt.data_ptr(), A32.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
                 y.data_ptr(), state.data_ptr(), f32.data_ptr(), b16.data_ptr(),

@@ -12,8 +12,11 @@ Tolerances are those ``chip_smoke.py`` holds the kernels to on the card: y
 within ``2e-4 * (max|y| + 1)`` (plus one bf16 ulp, rtol 1e-2, where y is
 bf16) and the final state within ``2e-4 * (max|state| + 1)``.  A single
 bf16 per fp32 operand does not hold at mamba2-130m's chunk shape, which is
-why the kernels take the pairs.  Also here: the host's branch rule between
-the tensor-core and CUDA-core kernels, and the chunk rule.
+why the kernels take the pairs.  The kernels split a head into slices of at
+most 64 columns of P (jamba-1.5-large's head dim 128 is two), each block
+computing its slice alone: the decomposition on each slice gives that
+slice of y and of the state.  Also here: the host's branch rule between
+the tensor-core and CUDA-core kernels, the slice rule, and the chunk rule.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -112,6 +115,8 @@ def _bf16(a):
 
 CASES = [                 # (B, S, H, P, G, N, chunk)
     (1, 512, 2, 64, 1, 128, 256),   # mamba2-130m's widths, two chunks
+    (1, 512, 2, 128, 1, 128, 256),  # jamba-1.5-large's widths (P 128: two slices), two chunks
+    (2, 300, 4, 128, 2, 64, 128),   # P 128, ragged S, G > 1
     (2, 300, 4, 64, 2, 32, 128),    # ragged S (last chunk 44), G > 1
     (1, 1024, 2, 16, 1, 16, 64),    # 16 chunks: the state passes along 16
     (2, 64, 4, 32, 4, 64, 64),      # one chunk (nc 1), G == H
@@ -168,12 +173,43 @@ def test_one_bf16_per_operand_breaks_the_hold_and_pairs_keep_it():
     (torch.bfloat16, 16, 16, 37, 8, False),         # the reduced configs: L 8
     (torch.bfloat16, 64, 128, 37, 256, False),      # S < chunk: L 37
     (torch.bfloat16, 64, 128, 1, 256, False),       # S 1: L 1
-    (torch.bfloat16, 128, 64, 256, 256, False),     # P over 64
+    (torch.bfloat16, 128, 64, 256, 256, True),      # P 128: two slices of 64
+    (torch.bfloat16, 128, 128, 1024, 256, True),    # jamba-1.5-large's prefill and score
+    (torch.bfloat16, 96, 128, 256, 64, True),       # slices of 64 and 32
+    (torch.bfloat16, 144, 128, 1024, 256, False),   # P over 128
+    (torch.bfloat16, 256, 128, 1024, 256, False),
     (torch.bfloat16, 64, 24, 256, 256, False),      # N not a multiple of 16
     (torch.bfloat16, 64, 128, 8192, 4096, False),   # L over 2048
 ])
 def test_branch_rule(dtype, P, N, S, chunk, tc):
     assert sk.tensor_core_branch(dtype, P, N, ops.ssd_chunk_len(S, chunk)) is tc
+
+
+@pytest.mark.parametrize("P,slices", [(16, 1), (48, 1), (64, 1), (80, 2), (96, 2), (128, 2)])
+def test_tc_slices(P, slices):
+    """A block takes at most 64 columns of P; the last slice the rest."""
+    assert sk.TC_SLICE_P == 64 and sk.tc_slices(P) == slices
+    assert (slices - 1) * sk.TC_SLICE_P < P <= slices * sk.TC_SLICE_P
+
+
+@pytest.mark.parametrize("B,S,H,P,G,N,chunk", [(1, 512, 2, 128, 1, 128, 256),
+                                               (2, 300, 4, 96, 2, 64, 128)])
+def test_p_slices_are_independent(B, S, H, P, G, N, chunk):
+    """The premise of the kernels' slices: the decomposition on the
+    columns p0 .. p0 + 63 of x alone gives those columns of y and rows of
+    the final state (in the kernels' operand rounding), so two blocks of
+    one head need nothing from each other."""
+    x, dt, A, Bm, Cm = (torch.from_numpy(a) for a in _inputs(B, S, H, P, G, N, seed=P))
+    L = ops.ssd_chunk_len(S, chunk)
+    y, st = ssd_chunk_parallel(x, dt, A, Bm, Cm, L, operand=_hi_lo)
+    w = sk.TC_SLICE_P
+    parts = [ssd_chunk_parallel(x[..., p0:p0 + w], dt, A, Bm, Cm, L, operand=_hi_lo)
+             for p0 in range(0, P, w)]
+    assert len(parts) == sk.tc_slices(P)
+    tol_y = 1e-6 * (float(y.abs().max()) + 1.0)
+    tol_s = 1e-6 * (float(st.abs().max()) + 1.0)
+    assert float((torch.cat([yp for yp, _ in parts], dim=-1) - y).abs().max()) <= tol_y
+    assert float((torch.cat([sp for _, sp in parts], dim=2) - st).abs().max()) <= tol_s
 
 
 def test_branch_counters_stay_zero_on_the_cpu():
