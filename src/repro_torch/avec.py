@@ -989,14 +989,14 @@ class ClientSession(AvecSession):
             if not ok:
                 raise last_exc or NoDestinationError(
                     f"no destination survived sharded call {cid!r}")
-            ts0 = time.perf_counter()
+            ts0 = time.perf_counter_ns()
             out = plan.stitch(results)
-            stitch_s = time.perf_counter() - ts0
+            stitch_ns = time.perf_counter_ns() - ts0
             for i in range(n):
                 _trace.finish_trace(children[i], walls[i])
             _trace.merge_sharded(parent, children)
             if parent is not None:
-                parent.add("stitch", stitch_s)
+                parent.add("stitch", ts0, stitch_ns)
             wall = time.perf_counter() - t0
             _trace.finish_trace(parent, wall)
             compute = max(computes) if computes else 0.0

@@ -127,6 +127,7 @@ from repro_torch.core.serialization import (PROTOCOL_VERSION, SUPPORTED_CODECS,
 from repro_torch.core.transport import Channel, ChannelClosed, ProtocolError
 from repro_torch.models.params import from_numpy_tree
 from repro_torch.obs import metrics as _obs_metrics
+from repro_torch.obs import trace as _trace
 from repro_torch.obs.config import global_config
 from repro_torch.utils import (concat_rows, dtype_name, resolve_device, to_numpy_tree,
                                tree_flatten, tree_leaves, tree_map, tree_unflatten)
@@ -429,7 +430,7 @@ class _Coalescer:
             # trailing element: enqueue timestamp, so traced requests can
             # attribute their destination wait to queue vs coalesce spans
             self._q.push(tenant, meta.get("qos"),   # avecheck: handoff
-                         (key, meta, tree, fut, lease, time.monotonic()))
+                         (key, meta, tree, fut, lease, time.perf_counter_ns()))
             self._cv.notify_all()
         return fut.result()
 
@@ -462,7 +463,7 @@ class _Coalescer:
                 if self._stopped:
                     break
                 tq, key, batch = self._q.next_batch(self.max_batch)
-                picked_at = time.monotonic()
+                picked_at = time.perf_counter_ns()
                 if len(batch) < self.max_batch:
                     # window-fill: wait for more compatible arrivals, but
                     # ONLY while nothing else (any tenant) is pending —
@@ -485,11 +486,11 @@ class _Coalescer:
             batch = tq = key = None
         self._drain_failed()
 
-    def _dispatch(self, batch: list, picked_at: float | None = None) -> None:
+    def _dispatch(self, batch: list, picked_at: int | None = None) -> None:
         key = batch[0][0]
         metas = [b[1] for b in batch]
         trees = [b[2] for b in batch]
-        t_exec = time.monotonic()
+        t_exec = time.perf_counter_ns()
         try:
             results = self._execute(key, metas, trees)
             self.stats["batches"] += 1
@@ -503,9 +504,10 @@ class _Coalescer:
                     # (enqueued after the pick) clamp queue to zero.
                     pick = min(picked_at if picked_at is not None
                                else t_exec, t_exec)
-                    rmeta = res[0]
-                    rmeta["queue_s"] = max(pick - t_enq, 0.0)
-                    rmeta["coalesce_s"] = max(t_exec - max(pick, t_enq), 0.0)
+                    res[0]["_waits"] = [
+                        ("queue", t_enq, max(pick - t_enq, 0)),
+                        ("coalesce", max(pick, t_enq),
+                         max(t_exec - max(pick, t_enq), 0))]
                 fut.set_result(res)
         except Exception as e:  # noqa: BLE001 — propagate per request
             for item in batch:
@@ -717,9 +719,10 @@ class DestinationExecutor:
         # response is written); ops that must keep the frame's bytes alive
         # past this call — the coalescer's queue — retain it from here
         self._tls.lease = raw if isinstance(raw, BufferLease) else None
-        self._tls.t_in = time.monotonic()   # traced requests' queue span t0
+        t_in = time.perf_counter_ns()
         try:
             meta, tree = unpack_message(raw)
+            self._tls.unpack = (t_in, time.perf_counter_ns())   # a traced run's span
             if self.fail:
                 raise RuntimeError(f"executor {self.name} marked failed")
             op = meta["op"]
@@ -867,7 +870,6 @@ class DestinationExecutor:
                              f"~{retry_after * 1e3:.0f}ms"}, None, "raw"
         done_ok = False
         try:
-            t_exec0 = time.monotonic()
             if self._coalescer is not None and meta.get("batchable"):
                 key = (meta["fp"], meta["fn"], codec, _batch_signature(tree))
                 rmeta, out_np = self._coalescer.submit(
@@ -875,32 +877,40 @@ class DestinationExecutor:
             else:
                 rmeta, out_np = self._run_one(meta, tree)
             done_ok = True
+            # a traced run's measured hops ride in private keys: off the
+            # wire, and out of the replay cache (a replayed response must
+            # not carry the original execution's stale timings)
+            measured, waits = rmeta.pop("_timing", None), rmeta.pop("_waits", None)
             if call_id is not None:
-                # cache BEFORE span stamping: a replayed response must not
-                # carry the original execution's (stale) hop timings
                 self._replay_put(meta["fp"], call_id, rmeta, out_np)
-            if meta.get("trace") is not None:
-                rmeta = self._stamp_spans(dict(rmeta), meta["trace"],
-                                          t_exec0)
+            if meta.get("trace") is not None and measured is not None:
+                rmeta = self._stamp_spans(dict(rmeta), meta["trace"], measured,
+                                          waits)
             return rmeta, out_np, codec
         finally:
             self._release(tenant, nbytes, served=done_ok)
 
-    def _stamp_spans(self, rmeta: dict, trace_id, t_exec0: float) -> dict:
-        """Attach destination hop spans to a traced run response: the
-        coalescer booked queue/coalesce waits into the rmeta; the direct
-        path's queue span is frame-arrival -> execution start."""
-        spans = {}
-        if "queue_s" in rmeta:
-            spans["queue"] = rmeta.pop("queue_s")
-            spans["coalesce"] = rmeta.pop("coalesce_s", 0.0)
-        else:
-            t_in = getattr(self._tls, "t_in", None)
-            spans["queue"] = (max(t_exec0 - t_in, 0.0)
-                              if t_in is not None else 0.0)
-        spans["execute"] = float(rmeta.get("compute_s", 0.0))
+    def _stamp_spans(self, rmeta: dict, trace_id, measured: tuple,
+                     waits: list | None) -> dict:
+        """Attach a traced run's destination spans to its response
+        (``repro_torch.obs.trace``): ``unpack`` from :meth:`handle`, the
+        coalescer's ``queue`` and ``coalesce`` waits, or on the direct path
+        ``queue`` from the decoded frame to the arguments' copy, then
+        :meth:`_run_one`'s ``h2d``, ``issue``, ``sync`` and ``d2h``, its
+        stages and wrapper counters."""
+        hops, stages = measured
+        t_in, t_out = self._tls.unpack
+        if waits is None:
+            waits = [("queue", t_out, hops[0][1] - t_out)]
+        spans, starts = {}, {}
+        for name, start, dur in [("unpack", t_in, t_out - t_in), *waits, *hops]:
+            spans[name] = dur / 1e9
+            starts[name] = start
         rmeta["trace"] = trace_id
         rmeta["spans"] = spans
+        rmeta["span_starts"] = starts
+        rmeta["stages"] = stages.spans
+        rmeta["wrappers"] = stages.wrappers
         return rmeta
 
     def _op_drop_session(self, meta, tree):
@@ -923,18 +933,37 @@ class DestinationExecutor:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def _run_one(self, meta, tree) -> tuple[dict, Any]:
+    def _run_one(self, meta, tree, traced: bool | None = None) -> tuple[dict, Any]:
+        """One library call.  ``traced`` (default: the request carries a
+        trace id) puts a :class:`~repro_torch.obs.trace.Stages` on this
+        thread for the call and returns the measured hops under the
+        private ``"_timing"`` key."""
+        if traced is None:
+            traced = meta.get("trace") is not None
         entry = self.cache.get(meta["fp"])
         fn = self.libraries[entry["lib"]][meta["fn"]]
+        t0 = time.perf_counter_ns()
         args = from_numpy_tree(tree, self.device)
         self._sync()                # compute_s times the call, not the copy in
-        t0 = time.perf_counter()
-        out = fn(entry["params"], entry["state"], args)
-        self._sync()                # jax.block_until_ready's counterpart
-        compute_s = time.perf_counter() - t0
+        t1 = time.perf_counter_ns()
+        if traced:
+            _trace.CURRENT.stages = stages = _trace.Stages()
+        try:
+            out = fn(entry["params"], entry["state"], args)
+            t2 = time.perf_counter_ns()
+            self._sync()            # jax.block_until_ready's counterpart
+            t3 = time.perf_counter_ns()
+        finally:
+            if traced:
+                _trace.CURRENT.stages = None
         # host numpy before packing: the wire flattens with np.asarray
         out_np = to_numpy_tree(out)
-        return {"ok": True, "compute_s": compute_s, "coalesced": 1}, out_np
+        rmeta = {"ok": True, "compute_s": (t3 - t1) / 1e9, "coalesced": 1}
+        if traced:
+            hops = [("h2d", t0, t1 - t0), ("issue", t1, t2 - t1), ("sync", t2, t3 - t2),
+                    ("d2h", t3, time.perf_counter_ns() - t3)]
+            rmeta["_timing"] = (hops, stages)
+        return rmeta, out_np
 
     def _run_batch(self, key, metas: list, trees: list) -> list:
         """One stacked dispatch for a coalesced batch (leaves concatenated on
@@ -952,7 +981,8 @@ class DestinationExecutor:
                     return [self._run_one(m, tr)
                             for m, tr in zip(metas, trees)]
         stacked = tree_map(concat_rows, *trees)
-        rmeta, out_np = self._run_one(metas[0], stacked)
+        rmeta, out_np = self._run_one(
+            metas[0], stacked, traced=any(m.get("trace") is not None for m in metas))
         total = int(sum(rows))
         out_leaves_chk = tree_leaves(out_np)
         if any(np.ndim(l) == 0 or np.shape(l)[0] != total
@@ -966,11 +996,23 @@ class DestinationExecutor:
         # misfire on output trees that contain list nodes of their own
         out_leaves, out_def = tree_flatten(out_np)
         leaf_parts = [np.split(l, splits, axis=0) for l in out_leaves]
-        per_meta = {**rmeta, "compute_s": rmeta["compute_s"] / len(trees),
-                    "coalesced": len(trees)}
+        n = len(trees)
+        per_meta = {**rmeta, "compute_s": rmeta["compute_s"] / n, "coalesced": n}
+        if "_timing" in rmeta:
+            per_meta["_timing"] = _trace_share(rmeta["_timing"], n)
         return [(dict(per_meta),
                  tree_unflatten(out_def, [parts[i] for parts in leaf_parts]))
                 for i in range(len(trees))]
+
+
+def _trace_share(measured: tuple, n: int) -> tuple:
+    """One of ``n`` coalesced calls' share of their batch's measured hops
+    and stages: durations divided, as ``compute_s`` is; counts kept."""
+    hops, stages = measured
+    share = _trace.Stages()
+    share.spans = {k: [t, d // n, c] for k, (t, d, c) in stages.spans.items()}
+    share.wrappers = {k: [c, d // n] for k, (c, d) in stages.wrappers.items()}
+    return [(name, t, d // n) for name, t, d in hops], share
 
 
 # ---------------------------------------------------------------------------
@@ -1008,14 +1050,15 @@ class HostRuntime:
              trace=None) -> tuple[dict, Any]:
         if trace is not None:
             meta = {**meta, "trace": trace.trace_id}
-            t0 = time.perf_counter()
+            t0 = time.perf_counter_ns()
             req = pack_message(meta, tree, codec=codec)
-            trace.add("serialize", time.perf_counter() - t0)
+            trace.stamp("serialize", t0)
         else:
             req = pack_message(meta, tree, codec=codec)
         self.bytes_sent += len(req)
         resp = self.channel.request(req, timeout=self.timeout)
         self.bytes_received += len(resp)
+        t_un = time.perf_counter_ns()
         try:
             rmeta, rtree = unpack_message(resp, copy=self.copy_results)
         finally:
@@ -1024,7 +1067,9 @@ class HostRuntime:
             # the slab recycles immediately)
             release_buffer(resp)
         if trace is not None:
-            trace.merge(rmeta.get("spans"))
+            unpack_ns = time.perf_counter_ns() - t_un
+            trace.merge(rmeta)
+            trace.add("unpack", t_un, unpack_ns)
         if not rmeta.get("ok", False):
             raise _remote_exception(rmeta)
         return rmeta, rtree
@@ -1269,10 +1314,10 @@ class PipelinedHostRuntime(HostRuntime):
         self._pump_until(lambda: len(self._pending) < self._window.window,
                          on_pass=_admit)
         try:
-            t_ser = time.perf_counter()
+            t_ser = time.perf_counter_ns()
             req = pack_message(meta, tree, codec=codec, request_id=rid)
             if trace is not None:
-                trace.add("serialize", time.perf_counter() - t_ser)
+                trace.stamp("serialize", t_ser)
             # comm_quant accounting: a preference tuple headed by a quant
             # codec means _effective_codec engaged — record what the lossy
             # encode shaved off the raw leaf bytes (floor 0: tiny leaves
@@ -1282,13 +1327,13 @@ class PipelinedHostRuntime(HostRuntime):
                     and codec[0] in ("int8", "fp16")):
                 quant_saved = max(tree_wire_bytes(tree) - len(req), 0)
             deadline = time.monotonic() + self.timeout
-            t_send = time.perf_counter()
+            t_send = time.perf_counter_ns()
             with self._slock:
                 self._send_frame_pumping(req, deadline)
             if trace is not None:
                 # includes backpressure stalls (pumped receives) — the
                 # honest cost of getting this frame onto the wire
-                trace.add("send", time.perf_counter() - t_send)
+                trace.stamp("send", t_send)
             with self._cv:
                 self.bytes_sent += len(req)
                 if quant_saved >= 0:
@@ -1507,6 +1552,7 @@ class PipelinedHostRuntime(HostRuntime):
                 self._requests_completed += 1
         if fut is None:
             return
+        t_un = time.perf_counter_ns()
         try:
             rmeta, rtree = unpack_message(data, copy=self.copy_results)
         except Exception as e:  # noqa: BLE001
@@ -1515,7 +1561,9 @@ class PipelinedHostRuntime(HostRuntime):
         if trace is not None:
             # safe without the future's result: the caller only reads the
             # trace after the future resolves (the future is the fence)
-            trace.merge(rmeta.get("spans"))
+            unpack_ns = time.perf_counter_ns() - t_un
+            trace.merge(rmeta)
+            trace.add("unpack", t_un, unpack_ns)
         if (self.adaptive_window and track is not None
                 and rmeta.get("ok", False) and "compute_s" in rmeta):
             t0, depth = track

@@ -14,11 +14,14 @@ CUDA wrapper (``*_cuda``, which counts its launches) and the plain version
 (an input requires grad), ``rmsnorm``, ``flash_attention`` and ``ssd_scan``
 on the card go through :class:`~repro_torch.kernels.autograd.KernelFunction`:
 forward through the kernel, backward through the recomputed plain version.
+In a traced call (``obs.trace``) each op counts its calls and host time
+into the call's wrapper counters.
 """
 from __future__ import annotations
 
 import contextlib
-from functools import partial
+import time
+from functools import partial, wraps
 
 import torch
 
@@ -29,6 +32,7 @@ from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import rmsnorm as _rms
 from repro_torch.kernels import ssd_scan as _ssd
 from repro_torch.kernels.autograd import KernelFunction, needs_grad
+from repro_torch.obs import trace as _trace
 
 # kernel name -> (module, the module's launch counter)
 _KERNELS = {"rmsnorm": (_rms, "launches"), "flash_attention": (_fa, "launches"),
@@ -85,8 +89,27 @@ def reset_launch_counts() -> None:
         setattr(mod, attr, 0)
 
 
+def _counted(op):
+    """The op, counting its calls and host time into the traced call's
+    :class:`~repro_torch.obs.trace.Stages` on this thread, if there is one."""
+    name = op.__name__
+
+    @wraps(op)
+    def counted(*args, **kwargs):
+        stages = _trace.CURRENT.stages
+        if stages is None:
+            return op(*args, **kwargs)
+        t0 = time.perf_counter_ns()
+        try:
+            return op(*args, **kwargs)
+        finally:
+            stages.wrapper(name, t0)
+    return counted
+
+
 # ---------------------------------------------------------------------------
 
+@_counted
 def flash_attention(q, k, v, *, causal: bool = True, impl: str | None = None):
     """Model layout q: (B,S,H,D), k/v: (B,T,K,D) -> (B,S,H,D).  A DTensor
     goes shard by shard, each shard through this dispatch."""
@@ -111,6 +134,7 @@ def _flash_kernel(q, k, v, *, causal):
     return out
 
 
+@_counted
 def decode_attention(q, k, v, kv_len, *, impl: str | None = None):
     """Model layout q: (B,1,H,D), k/v: (B,S,K,D), kv_len (B,) -> (B,1,H,D).
     A DTensor goes shard by shard, each shard through this dispatch."""
@@ -125,6 +149,7 @@ def decode_attention(q, k, v, kv_len, *, impl: str | None = None):
     return _dec.decode_attention_cuda(qt, kt, vt, kv_len).reshape(B, 1, H, D)
 
 
+@_counted
 def rmsnorm(x, scale, *, eps: float = 1e-6, impl: str | None = None):
     if not _use_kernel(x, impl):
         return _rms.rmsnorm_plain(x, scale, eps=eps)
@@ -134,6 +159,7 @@ def rmsnorm(x, scale, *, eps: float = 1e-6, impl: str | None = None):
     return _rms.rmsnorm_cuda(x, scale, eps=eps)
 
 
+@_counted
 def ssd_scan(x, dt, A, Bm, Cm, *, chunk: int = 256, impl: str | None = None):
     """Model layout x: (B,S,H,P), dt: (B,S,H), A: (H,), Bm/Cm: (B,S,G,N).
     Returns (y (B,S,H,P), final_state (B,H,P,N) fp32).  The chunk length
@@ -156,6 +182,7 @@ def ssd_chunk_len(S: int, chunk: int) -> int:
     return min(chunk, S) if S % min(chunk, S) == 0 else chunk
 
 
+@_counted
 def quantize_int8(x, *, impl: str | None = None):
     """x: (N, D) -> (q int8 (N, D), scale f32 (N, 1)); the kernel reads f32
     or bf16 (exact in fp32), the plain version casts to fp32."""
@@ -164,6 +191,7 @@ def quantize_int8(x, *, impl: str | None = None):
     return _cq.quantize_int8_cuda(x)
 
 
+@_counted
 def dequantize_int8(q, scale, dtype=torch.float32, *, impl: str | None = None):
     """q (N, D) int8, scale (N, 1) f32 -> (N, D) ``dtype``."""
     if not _use_kernel(q, impl):

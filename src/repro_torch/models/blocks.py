@@ -15,6 +15,8 @@ A pure-SSM layer has ``mixer_norm`` and ``mamba`` and no FFN sublayer.
 """
 from __future__ import annotations
 
+import time
+
 import torch
 
 from repro_torch.models import attention as attn
@@ -23,6 +25,7 @@ from repro_torch.models.layers import apply_norm, norm_specs
 from repro_torch.models.mlp import apply_mlp, mlp_specs
 from repro_torch.models.moe import apply_moe, moe_specs
 from repro_torch.models.params import ParamSpec
+from repro_torch.obs import trace as _trace
 from repro_torch.utils import tree_map
 
 
@@ -134,8 +137,12 @@ def _apply_layer(cfg, p: dict, h, *, positions, mode: str, cache: dict | None, p
                  context):
     """One layer.  Returns (h, new_cache, aux_loss: a tensor for a MoE
     layer, else 0.0).  Prefill and decode write into ``cache`` (views of
-    the stacked cache) in place."""
+    the stacked cache) in place.  In a traced call (``obs.trace``) the
+    mixer and FFN sublayers, each with its norm and residual add, are
+    booked as the ``mixer`` and ``ffn`` stages."""
     aux = 0.0
+    stages = _trace.CURRENT.stages
+    t = time.perf_counter_ns() if stages is not None else 0
     normed = apply_norm(cfg, p["mixer_norm"], h)
     new_cache: dict = {}
     if "mamba" in p:
@@ -160,12 +167,16 @@ def _apply_layer(cfg, p: dict, h, *, positions, mode: str, cache: dict | None, p
             mix, new_cache = attn.self_attention_decode(cfg, p["attn"], normed, cache, pos,
                                                         rope=rope)
 
+    h = h + mix
+    if stages is not None:
+        t = stages.stage("mixer", t)
     if cfg.parallel_block and "mlp" in p:
         # command-r style: shared-norm parallel attn + ffn residual
         # (cross/moe never combined with parallel_block in assigned archs)
-        return h + mix + apply_mlp(cfg, p["mlp"], normed), new_cache, aux
-
-    h = h + mix
+        h = h + apply_mlp(cfg, p["mlp"], normed)
+        if stages is not None:
+            stages.stage("ffn", t)
+        return h, new_cache, aux
 
     # ---- gated cross-attention (VLM) ---------------------------------------
     if "cross" in p:
@@ -182,11 +193,16 @@ def _apply_layer(cfg, p: dict, h, *, positions, mode: str, cache: dict | None, p
         h = h + torch.tanh(p["cross_gate"]).to(h.dtype) * ca
 
     # ---- FFN ----------------------------------------------------------------
-    if "moe" in p:
-        y, aux = apply_moe(cfg, p["moe"], apply_norm(cfg, p["ffn_norm"], h))
+    if "moe" in p or "mlp" in p:
+        if stages is not None:
+            t = time.perf_counter_ns()
+        if "moe" in p:
+            y, aux = apply_moe(cfg, p["moe"], apply_norm(cfg, p["ffn_norm"], h))
+        else:
+            y = apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["ffn_norm"], h))
         h = h + y
-    elif "mlp" in p:
-        h = h + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["ffn_norm"], h))
+        if stages is not None:
+            stages.stage("ffn", t)
     return h, new_cache, aux
 
 

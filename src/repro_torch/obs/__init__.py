@@ -16,9 +16,13 @@ as :mod:`repro_torch.analysis.sanitize`):
   ``pool_stats()`` / ``tenant_stats`` dicts as scrape-time metric reads
   (nothing is pushed on the hot path).
 * :mod:`repro_torch.obs.trace` — request-scoped trace ids generated at the
-  facade, carried in frame ``meta``, stamped with per-hop spans
-  (serialize → send → queue → coalesce → execute → respond) and emitted
-  as structured JSON log lines.
+  facade, carried in frame ``meta``, stamped with per-hop spans, each
+  with its start on ``perf_counter_ns`` (serialize → send → unpack →
+  queue → coalesce → h2d → issue → sync → d2h → unpack → respond, the
+  last the remainder: argument conversion, response pack, both wire
+  flights and the hand-off to the caller), the model step's ``mixer``
+  and ``ffn`` stages and kernel-wrapper counters inside ``issue``, kept
+  in a 16,384-record sink and emitted as structured JSON log lines.
 """
 from repro_torch.obs.config import (GlobalConfig, Knob, UnknownKnobError,
                               global_config)
