@@ -201,6 +201,7 @@ from __future__ import annotations
 import argparse
 import gc
 import json
+import re
 import subprocess
 import sys
 import time
@@ -1238,6 +1239,34 @@ def all_counts() -> dict:
     return {**ops.launch_counts(), **ops.branch_counts()}
 
 
+#: the hand-written kernels of a decode step, by counter key and kernel name
+STEP_KERNELS = {"rmsnorm": "rmsnorm_kernel", "decode_attention": "decode_split_kernel"}
+
+
+def measured_counts(fn) -> dict:
+    """Run ``fn`` from zeroed counters under the profiler -> every kernel's
+    launches, those of STEP_KERNELS as the device trace counts them.  A
+    decode replayed as a CUDA graph (``core.library.DecodeGraph``) runs
+    them without their wrappers, so the counters miss them; checks that
+    every launch the wrappers counted ran."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import ops
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    counts = all_counts()
+    ran = {key: sum(bool(re.search(rf"\b{k}\b", n)) for n in names)
+           for key, k in STEP_KERNELS.items()}
+    check(all(counts[k] <= n for k, n in ran.items()),
+          f"the device ran every launch the wrappers counted: {ran} in the device trace, "
+          f"{ {k: counts[k] for k in ran} } counted")
+    return counts | ran
+
+
 def per_call_counts(cfg) -> dict:
     """Kernel launches of one forward (a prefill or a score) and of one
     decode step, from the model's structure: an rmsnorm per mixer norm, per
@@ -1406,18 +1435,19 @@ def main_path(phase: str, arch: str, seq: int, seed: int, dev, profile: bool = F
                           host.bytes_sent - sent))
             return out
 
-        ops.reset_launch_counts()
-        prefill_logits = np.array(call("prefill", {"tokens": tokens, **extra})["logits"])
-        logits = [prefill_logits]
-        nxt = prefill_logits[:, -1].argmax(-1).astype(np.int32)[:, None]
-        for _ in range(N_DECODE):
-            lg = np.array(call("decode", {"tokens": nxt, **step_extra})["logits"])
-            logits.append(lg)
-            nxt = lg[:, -1].argmax(-1).astype(np.int32)[:, None]
+        logits, losses = [], []
         targets = np.concatenate([tokens[:, 1:], tokens[:, :1]], axis=1)
-        loss = float(np.asarray(call("score", {"tokens": tokens, "targets": targets,
-                                               **extra})["loss"]))
-        counts = all_counts()
+
+        def served():
+            logits.append(np.array(call("prefill", {"tokens": tokens, **extra})["logits"]))
+            for _ in range(N_DECODE):
+                nxt = logits[-1][:, -1].argmax(-1).astype(np.int32)[:, None]
+                logits.append(np.array(call("decode", {"tokens": nxt, **step_extra})["logits"]))
+            losses.append(float(np.asarray(call("score", {"tokens": tokens, "targets": targets,
+                                                          **extra})["loss"])))
+
+        counts = measured_counts(served)
+        prefill_logits, loss = logits[0], losses[0]
         for fn, comp, wire, sent in calls:
             print(f"  {fn:8s} compute_s {comp:.5f}  wire_s {wire:.5f}  sent "
                   f"{sent / 1e6:.3f} MB", flush=True)
@@ -2192,9 +2222,9 @@ def frontdoor_path(seed: int, dev, served: dict, profile: bool = False) -> dict:
         # warm through the destination's own server thread (its cuBLAS
         # handle, the allocator) before anything is timed or counted
         sess.call("prefill", {"tokens": tokens})
-        ops.reset_launch_counts()
-        logits, loss, cycles = facade_calls(sess, tokens, N_DECODE)
-        counts = all_counts()
+        res = []
+        counts = measured_counts(lambda: res.append(facade_calls(sess, tokens, N_DECODE)))
+        logits, loss, cycles = res[0]
         add_counts(total, counts)
         for fn, comp, wire in cycles:
             print(f"  {fn:8s} compute_s {comp:.5f}  wire_s {wire:.5f}", flush=True)
@@ -2782,11 +2812,10 @@ def twins_path(seed: int, dev) -> dict:
     print(f"phase 12a: repro_torch.examples.offload_serving, {cfg.name} at full width ({L} "
           f"layers, {model_line(cfg)}), two TCP destinations on the card through "
           f"avec.connect", flush=True)
-    torch.cuda.synchronize()
-    ops.reset_launch_counts()
-    res = offload_serving.run(cfg, device=dev, seed=seed, timeout=900.0, echo=echo_as("12a"))
-    torch.cuda.synchronize()
-    counts = all_counts()
+    out = []
+    counts = measured_counts(lambda: out.append(offload_serving.run(
+        cfg, device=dev, seed=seed, timeout=900.0, echo=echo_as("12a"))))
+    res = out[0]
     add_counts(total, counts)
     b, gen = res["breakdown"], res["tokens"]
     n_new, n_scores = gen.shape[1] - 1, len(res["scores"])   # decode steps, score calls

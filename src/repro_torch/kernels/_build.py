@@ -139,6 +139,16 @@ def current_stream(t) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def launched() -> int:
+    """What a wrapper adds to its launch counter after a launch: 1, or 0
+    while the current stream is being captured into a CUDA graph, where the
+    launch is recorded and runs nothing.  A graph's replays run its kernels
+    without their wrappers, so the counters count only launches made
+    outside a graph; a device trace sees both."""
+    import torch
+    return 0 if torch.cuda.is_current_stream_capturing() else 1
+
+
 def require_cuda(name: str, *tensors) -> None:
     dev = tensors[0].device
     for t in tensors:

@@ -146,11 +146,12 @@ def quantize_int8_cuda(x):
             N, D, x.stride(0), q.stride(0), plan.per, plan.tpr, plan.rpb,
             _build.current_stream(x))
     _build.check(rc, "quantize_int8")
-    quantize_launches += 1
+    n = _build.launched()
+    quantize_launches += n
     if plan.per:
-        quantize_launches_vec += 1
+        quantize_launches_vec += n
     else:
-        quantize_launches_scalar += 1
+        quantize_launches_scalar += n
     return q, scale
 
 
@@ -170,5 +171,5 @@ def dequantize_int8_cuda(q, scale, dtype=torch.float32):
     rc = fn(q.data_ptr(), s.data_ptr(), out.data_ptr(), _build.dtype_code(out),
             N, D, q.stride(0), out.stride(0), _build.current_stream(q))
     _build.check(rc, "dequantize_int8")
-    dequantize_launches += 1
+    dequantize_launches += _build.launched()
     return out

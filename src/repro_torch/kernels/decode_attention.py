@@ -19,7 +19,9 @@ counter -- merges them in split order: no float atomics, so two calls give
 bit-identical output.  The scratch (``torch.empty``) and the counters are
 kept per device and reused from call to call, which costs the serving path
 no allocation; calls on one device must therefore run on one stream, one
-after another, as the model's do.  Head dims 16, 64 and 128; G up to 64; q
+after another, as the model's do.  A CUDA graph captured over a call keeps
+addressing the buffers it was captured with, so a buffer that grows keeps
+its predecessor alive.  Head dims 16, 64 and 128; G up to 64; q
 and the cache each float32 or bfloat16 (the library path gives both one
 dtype).
 
@@ -49,7 +51,7 @@ BLOCKS_PER_SM = 4        # blocks the plan aims for, per SM
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = ([_P] * 7 + [_I] * 9 + [ctypes.c_float] + [_L] * 12 + [_P])
-_device: dict = {}      # device index -> [SM count, counters, scratch]
+_device: dict = {}      # device index -> [SM count, counters, scratch, outgrown buffers]
 
 
 def split_plan(S: int, B: int, K: int, n_sm: int) -> tuple[int, int]:
@@ -73,24 +75,30 @@ def decode_attention_cuda(q, k, v, kv_len):
 
 
 def _device_state(dev):
-    """[SM count, int32 counters, fp32 scratch] of ``dev``."""
+    """[SM count, int32 counters, fp32 scratch, outgrown buffers] of ``dev``."""
     idx = dev.index if dev.index is not None else torch.cuda.current_device()
     state = _device.get(idx)
     if state is None:
         state = _device[idx] = [torch.cuda.get_device_properties(idx).multi_processor_count,
                                 torch.zeros(0, dtype=torch.int32, device=dev),
-                                torch.empty(0, dtype=torch.float32, device=dev)]
+                                torch.empty(0, dtype=torch.float32, device=dev), []]
     return state
 
 
 def _buffers(state, n_pairs: int, n_part: int):
     """(counters, scratch) of a device's ``state``, grown to at least
     ``n_pairs`` counters (zero between calls: the kernel resets them) and
-    ``n_part`` floats."""
+    ``n_part`` floats.  An outgrown buffer is kept, not freed (a captured
+    graph may address it); each growth at least doubles, so those kept
+    take less memory than the buffers in use."""
     if state[1].numel() < n_pairs:
-        state[1] = torch.zeros(max(n_pairs, 256), dtype=torch.int32, device=state[1].device)
+        state[3].append(state[1])
+        state[1] = torch.zeros(max(n_pairs, 2 * state[1].numel(), 256), dtype=torch.int32,
+                               device=state[1].device)
     if state[2].numel() < n_part:
-        state[2] = torch.empty(max(n_part, 1 << 16), dtype=torch.float32, device=state[2].device)
+        state[3].append(state[2])
+        state[2] = torch.empty(max(n_part, 2 * state[2].numel(), 1 << 16), dtype=torch.float32,
+                               device=state[2].device)
     return state[1], state[2]
 
 
@@ -121,5 +129,5 @@ def _launch(q, k, v, kv_len, out, stream):
             B, K, G, S, D, split_len, n_split, float(D ** -0.5),
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3], stream)
     _build.check(rc, "decode_attention")
-    launches += 1
+    launches += _build.launched()
     return out

@@ -80,7 +80,7 @@ def _launch(q, k, v, causal, out, stream):
             B, H, K, Sq, Sk, D, int(bool(causal)), float(D ** -0.5),
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *dst.stride()[:3], stream)
     _build.check(rc, "flash_attention")
-    launches += 1
+    launches += _build.launched()
     if dst is not out:
         out.copy_(dst)
     return out

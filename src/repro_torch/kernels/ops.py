@@ -73,6 +73,8 @@ def _use_kernel(x, impl: str | None) -> bool:
 
 
 def launch_counts() -> dict[str, int]:
+    """Each kernel's launches by its wrapper, outside CUDA graph captures
+    (``_build.launched``): a replayed graph's kernels are not counted."""
     return {name: getattr(mod, attr) for name, (mod, attr) in _KERNELS.items()}
 
 

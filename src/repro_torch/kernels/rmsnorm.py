@@ -61,5 +61,5 @@ def _launch(x, scale, eps, stream):
             _build.dtype_code(s), x2.shape[0], D, x2.stride(0), y.stride(0), float(eps),
             plan.per, plan.tpr, plan.rpb, stream)
     _build.check(rc, "rmsnorm")
-    launches += 1
+    launches += _build.launched()
     return y.reshape(x.shape)

@@ -117,7 +117,7 @@ def _launch(x, dt, A, Bm, Cm, chunk, stream):
                 *x.stride()[:3], *dt.stride(), *Bm.stride()[:3], *Cm.stride()[:3],
                 *y.stride()[:3], stream)
         _build.check(rc, "ssd_scan (tensor cores)")
-        launches_tc += 1
+        launches_tc += _build.launched()
     else:
         x, Bm, Cm = (_build.unit_last(t) for t in (x, Bm, Cm))
         fn = _build.function("avec_ssd_scan", _ARGTYPES)
@@ -128,8 +128,8 @@ def _launch(x, dt, A, Bm, Cm, chunk, stream):
                 *x.stride()[:3], *dt.stride(), *Bm.stride()[:3], *Cm.stride()[:3],
                 *y.stride()[:3], stream)
         _build.check(rc, "ssd_scan (CUDA cores)")
-        launches_simt += 1
-    launches += 1
+        launches_simt += _build.launched()
+    launches += _build.launched()
     return y, state
 
 

@@ -8,15 +8,19 @@ through ``ops.flash_attention`` (causal, or bidirectional for an encoder);
 cross-attention over a context of Tc rows goes through it non-causal with
 Sq != Sk.  Decode goes through ``ops.decode_attention``: self-attention
 with ``kv_len = pos + 1``, cross-attention with ``kv_len = Tc`` for every
-row.
+row.  What a decode step's self-attention layers read of its position (the
+cache row written, ``kv_len``, RoPE's tables) is computed once a step
+(:func:`decode_index`).
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.distributed.dtensor import index_copy_
 from repro_torch.kernels import ops
-from repro_torch.models.layers import apply_rope
+from repro_torch.models.layers import apply_rope, rope_tables
 from repro_torch.models.params import ParamSpec
 
 
@@ -52,20 +56,20 @@ def _heads_proj(x, w):
     return (x @ w.to(x.dtype).reshape(d, h * k)).view(B, S, h, k)
 
 
-def _project_q(cfg, p, x, positions, rope: bool):
+def _project_q(cfg, p, x, positions, rope: bool, tables=None):
     q = _heads_proj(x, p["wq"])
     if "bq" in p:
         q = q + p["bq"].to(x.dtype)
-    return apply_rope(q, positions, cfg.rope_theta) if rope else q
+    return apply_rope(q, positions, cfg.rope_theta, tables) if rope else q
 
 
-def _project_kv(cfg, p, x, positions, rope: bool):
+def _project_kv(cfg, p, x, positions, rope: bool, tables=None):
     k = _heads_proj(x, p["wk"])
     v = _heads_proj(x, p["wv"])
     if "bk" in p:
         k = k + p["bk"].to(x.dtype)
         v = v + p["bv"].to(x.dtype)
-    return (apply_rope(k, positions, cfg.rope_theta) if rope else k), v
+    return (apply_rope(k, positions, cfg.rope_theta, tables) if rope else k), v
 
 
 def _out_proj(p, o):
@@ -101,37 +105,56 @@ def self_attention_prefill(cfg, p, x, positions, cache: dict, *, rope: bool = Tr
     return _out_proj(p, o), cache
 
 
-def self_attention_decode(cfg, p, x, cache, pos, *, rope: bool = True):
-    """One-token decode.  x: (B,1,d); cache k/v: (B,S_max,K,hd); pos: ()
-    shared write index, or (B,) per-row indices (continuous batching).
+class DecodeIndex(NamedTuple):
+    """One decode step's position as each self-attention layer reads it:
+    ``pos`` () or (B,) int32, ``positions`` (B, 1), the cache row written
+    ``idx`` (int64), ``kv_len`` (B,) int32 and RoPE's ``tables`` (None
+    without RoPE)."""
+    pos: torch.Tensor
+    positions: torch.Tensor
+    idx: torch.Tensor
+    kv_len: torch.Tensor
+    tables: tuple | None
 
-    The cache is updated IN PLACE (the returned dict holds the same
-    tensors): a decode step writes one row per sequence, and copying the
-    whole cache per step would cost its full size in memory traffic.
+
+def decode_index(cfg, pos, B: int, S_max: int, device, *, rope: bool = True) -> DecodeIndex:
+    """The :class:`DecodeIndex` of a step at ``pos`` (() shared write index,
+    or (B,) per-row indices) over caches of ``S_max`` rows: computed once a
+    step, not in each layer.
 
     Write-index semantics match the reference at ``pos >= S_max``: a
     scalar ``pos`` is clamped to ``S_max - 1`` (``dynamic_update_slice``),
     a per-row ``pos`` past the end writes nothing (out-of-bounds scatter
     drops); either way every cache row is visible (``kv_len = S_max``)."""
+    pos = torch.as_tensor(pos, dtype=torch.int32, device=device)
+    positions = pos[:, None] if pos.ndim == 1 else pos.reshape(1, 1).expand(B, 1)
+    return DecodeIndex(
+        pos, positions, pos.long().clamp(0, S_max - 1),
+        (pos + 1).clamp(max=S_max).to(torch.int32).expand(B).contiguous(),
+        rope_tables(positions, cfg.head_dim, cfg.rope_theta, device) if rope else None)
+
+
+def self_attention_decode(cfg, p, x, cache, at: DecodeIndex, *, rope: bool = True):
+    """One-token decode.  x: (B,1,d); cache k/v: (B,S_max,K,hd); ``at``:
+    the step's :func:`decode_index`.
+
+    The cache is updated IN PLACE (the returned dict holds the same
+    tensors): a decode step writes one row per sequence, and copying the
+    whole cache per step would cost its full size in memory traffic."""
     B = x.shape[0]
     kc, vc = cache["k"], cache["v"]
     S_max = kc.shape[1]
-    pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
-    per_row = pos.ndim == 1
-    positions = pos[:, None] if per_row else pos.reshape(1, 1).expand(B, 1)
-    q = _project_q(cfg, p, x, positions, rope)
-    k_new, v_new = _project_kv(cfg, p, x, positions, rope)
-    idx = pos.long().clamp(0, S_max - 1)
-    if per_row:
+    q = _project_q(cfg, p, x, at.positions, rope, at.tables)
+    k_new, v_new = _project_kv(cfg, p, x, at.positions, rope, at.tables)
+    if at.pos.ndim == 1:
         rows = torch.arange(B, device=x.device)
-        keep = (pos < S_max)[:, None, None]
-        kc[rows, idx] = torch.where(keep, k_new[:, 0].to(kc.dtype), kc[rows, idx])
-        vc[rows, idx] = torch.where(keep, v_new[:, 0].to(vc.dtype), vc[rows, idx])
+        keep = (at.pos < S_max)[:, None, None]
+        kc[rows, at.idx] = torch.where(keep, k_new[:, 0].to(kc.dtype), kc[rows, at.idx])
+        vc[rows, at.idx] = torch.where(keep, v_new[:, 0].to(vc.dtype), vc[rows, at.idx])
     else:
-        index_copy_(kc, 1, idx.reshape(1), k_new.to(kc.dtype))
-        index_copy_(vc, 1, idx.reshape(1), v_new.to(vc.dtype))
-    kv_len = (pos + 1).clamp(max=S_max).to(torch.int32).expand(B).contiguous()
-    o = ops.decode_attention(q, kc, vc, kv_len)
+        index_copy_(kc, 1, at.idx.reshape(1), k_new.to(kc.dtype))
+        index_copy_(vc, 1, at.idx.reshape(1), v_new.to(vc.dtype))
+    o = ops.decode_attention(q, kc, vc, at.kv_len)
     return _out_proj(p, o), {"k": kc, "v": vc}
 
 

@@ -137,9 +137,11 @@ def _apply_layer(cfg, p: dict, h, *, positions, mode: str, cache: dict | None, p
                  context):
     """One layer.  Returns (h, new_cache, aux_loss: a tensor for a MoE
     layer, else 0.0).  Prefill and decode write into ``cache`` (views of
-    the stacked cache) in place.  In a traced call (``obs.trace``) the
-    mixer and FFN sublayers, each with its norm and residual add, are
-    booked as the ``mixer`` and ``ffn`` stages."""
+    the stacked cache) in place.  A decode reads its position from
+    ``pos``, its step's ``attention.decode_index`` (None in a model without
+    attention), and takes no ``positions``.  In a
+    traced call (``obs.trace``) the mixer and FFN sublayers, each with its
+    norm and residual add, are booked as the ``mixer`` and ``ffn`` stages."""
     aux = 0.0
     stages = _trace.CURRENT.stages
     t = time.perf_counter_ns() if stages is not None else 0

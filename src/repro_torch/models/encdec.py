@@ -128,13 +128,12 @@ def dec_prefill(cfg, params, tokens, enc_out, cache_len: int, cache_dtype=torch.
 def dec_step(cfg, params, cache, tokens, pos):
     """One-token decode.  tokens: (B,1); pos: () shared or (B,) per-row.
     The cache is updated in place."""
-    B = tokens.shape[0]
-    pos = torch.as_tensor(pos, dtype=torch.int32, device=tokens.device)
-    positions = pos[:, None] if pos.ndim == 1 else pos.reshape(1, 1).expand(B, 1)
-    h = _embed_dec(cfg, params, tokens, positions)
+    at = attn.decode_index(cfg, pos, tokens.shape[0], cache["k"].shape[2], tokens.device,
+                           rope=False)
+    h = _embed_dec(cfg, params, tokens, at.positions)
     for p, c in zip(_unstack(params["dec_blocks"]), _unstack(cache)):
         n = apply_norm(cfg, p["mixer_norm"], h)
-        mix, _ = attn.self_attention_decode(cfg, p["attn"], n, c, pos, rope=False)
+        mix, _ = attn.self_attention_decode(cfg, p["attn"], n, c, at, rope=False)
         h = h + mix
         n = apply_norm(cfg, p["cross_norm"], h)
         h = h + attn.cross_attention_cached(cfg, p["cross"], n, c)

@@ -76,14 +76,19 @@ def rope_freqs(head_dim: int, theta: float, device=None):
     return 1.0 / (theta ** exponents)
 
 
-def apply_rope(x, positions, theta: float):
-    """x: (B, S, H, D); positions: (B, S) int.  Half-split (not
-    interleaved), computed in fp32."""
-    d = x.shape[-1]
-    freqs = rope_freqs(d, theta, x.device)                    # (D/2,)
+def rope_tables(positions, d: int, theta: float, device=None):
+    """RoPE's cos and sin at ``positions`` (B, S) int: (B, S, 1, D/2) fp32
+    each."""
+    freqs = rope_freqs(d, theta, device)                      # (D/2,)
     angles = positions[..., None].float() * freqs             # (B, S, D/2)
-    cos = torch.cos(angles)[..., None, :]                     # (B, S, 1, D/2)
-    sin = torch.sin(angles)[..., None, :]
+    return torch.cos(angles)[..., None, :], torch.sin(angles)[..., None, :]
+
+
+def apply_rope(x, positions, theta: float, tables=None):
+    """x: (B, S, H, D); positions: (B, S) int.  Half-split (not
+    interleaved), computed in fp32.  ``tables``: :func:`rope_tables` at
+    ``positions``, where the caller computed them once for several calls."""
+    cos, sin = rope_tables(positions, x.shape[-1], theta, x.device) if tables is None else tables
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)

@@ -8,6 +8,7 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.models.attention import decode_index
 from repro_torch.models.blocks import (apply_block, block_specs, decode_cache, num_blocks,
                                        stacked_cache, zeros_like_h)
 from repro_torch.models.layers import apply_norm, embed_specs, embed_tokens, norm_specs
@@ -101,14 +102,13 @@ def lm_decode_step(cfg, params, cache, tokens, pos, *, context=None):
     reference accepts it and unused: cross-attention reads the cached
     context keys and values."""
     del context
-    pos = torch.as_tensor(pos, dtype=torch.int32, device=tokens.device)
-    B = tokens.shape[0]
-    positions = pos[:, None] if pos.ndim == 1 else pos.reshape(1, 1).expand(B, 1)
     h = embed_tokens(cfg, params["embed"], tokens)
     cache = decode_cache(cfg, cache, h.dtype)
+    kv = [layer["k"] for layer in cache["layers"] if "k" in layer]
+    at = (decode_index(cfg, pos, tokens.shape[0], kv[0].shape[2], tokens.device)
+          if kv else None)
     for bp, bc in zip(_unstack(params["blocks"]), _unstack(cache)):
-        h, _, _ = apply_block(cfg, bp, h, positions=positions, mode="decode", cache=bc,
-                              pos=pos)
+        h, _, _ = apply_block(cfg, bp, h, positions=None, mode="decode", cache=bc, pos=at)
     return apply_norm(cfg, params["final_norm"], h), cache
 
 

@@ -34,8 +34,11 @@ among its calls, as ``compute_s`` is.  Inside ``issue`` the model step
 stamps *stages*, child spans (parent ``issue``) summed over the layers
 with their count: ``mixer`` (a layer's norm, attention or Mamba call and
 residual add) and ``ffn`` (the same for its MLP or MoE); and each
-``kernels.ops`` wrapper counts its calls and host time.  Both accumulate
-into a :class:`Stages` that the executor puts on the running thread
+``kernels.ops`` wrapper counts its calls and host time.  A decode replayed
+as a CUDA graph (``core.library.DecodeGraph``) books one ``replay`` stage
+instead (its inputs' refresh, the graph's launch and its output's copy),
+and no layer stage or wrapper runs.  Both accumulate into a
+:class:`Stages` that the executor puts on the running thread
 (:data:`CURRENT`) only for a traced call.
 
 Every span is a tuple ``(name, start_ns, dur_ns, parent, n)``: ``start_ns``
@@ -73,6 +76,8 @@ from repro_torch.obs.config import global_config
 
 SPAN_ORDER = ("serialize", "send", "unpack", "queue", "coalesce", "h2d",
               "issue", "sync", "d2h", "stitch", "respond")
+#: the stages a model step books inside ``issue``
+STAGES = ("mixer", "ffn", "replay")
 #: records the sink keeps: about ten times the calls of the busiest
 #: benchmark window (1,589), so a window's records outlive it
 SINK_CAPACITY = 16384

@@ -13,6 +13,10 @@ jax.config.update("jax_enable_x64", False)
 from repro.analysis import sanitize as _sanitize  # noqa: E402
 
 
+def pytest_configure(config):
+    config.addinivalue_line("markers", "card: runs on a CUDA device; skips without one")
+
+
 @pytest.fixture(autouse=True)
 def _avec_sanitize():
     """When AVEC_SANITIZE=1, assert per-test that (a) every BufferLease

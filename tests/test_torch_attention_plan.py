@@ -13,7 +13,9 @@ What decides their work is host Python, checked here:
   ``repro.kernels.ref.decode_attention`` within 2e-5 (fp32,
   ``tests/test_kernels.py``'s tolerance);
 - the flash wrapper's 16-byte row rule: which strided inputs the kernel
-  reads in place and which it gets as a copy.
+  reads in place and which it gets as a copy;
+- the decode kernel's scratch only grows, and an outgrown buffer stays
+  alive for a CUDA graph that still addresses it.
 """
 import inspect
 
@@ -169,3 +171,16 @@ def test_flash_kernel_inputs_by_dtype():
     got = fk.kernel_inputs(qb, kb, vb)
     assert got[0] is not qb and _build.rows_aligned(got[0]) and torch.equal(got[0], qb)
     assert got[1] is kb and got[2] is vb
+
+
+def test_decode_scratch_grows_by_doubling_and_keeps_what_it_outgrew():
+    state = [132, torch.zeros(0, dtype=torch.int32), torch.empty(0), []]
+    counter, part = dk._buffers(state, 8, 1000)
+    assert (counter.numel(), part.numel()) == (256, 1 << 16)
+    assert dk._buffers(state, 8, 1000)[1] is part           # enough: reused
+    first = part
+    _, part = dk._buffers(state, 8, (1 << 16) + 1)
+    assert part.numel() == 1 << 17 and any(t is first for t in state[3])
+    counter2, part2 = dk._buffers(state, 300, 3 << 17)
+    assert counter2.numel() == 512 and part2.numel() == 3 << 17
+    assert any(t is counter for t in state[3]) and any(t is part for t in state[3])

@@ -104,6 +104,18 @@ def test_stages_lie_within_issue_one_count_a_layer(served):
         assert sum(s[2] for s in stages.values()) <= issue[2]
 
 
+def test_a_decode_on_the_cpu_runs_its_layers_and_replays_no_graph(served):
+    """``core.library.DecodeGraph`` replays a decode only on the card: on the
+    CPU each decode books its layers' stages and wrapper calls, no
+    ``replay``."""
+    family, cfg, sess, _, _ = served
+    for rec, _ in _calls(sess)[1:]:
+        stages = {s[0] for s in rec.spans if s[3] == "issue"}
+        assert "replay" not in stages and "mixer" in stages
+        assert ("ffn" in stages) == (family == "dense")
+        assert dict((op, n) for op, n, _ in rec.wrappers)["rmsnorm"] > 0
+
+
 def test_wrapper_counts_equal_the_ops_calls_of_the_step(served, monkeypatch):
     kind, cfg, sess, _, _ = served
     made: dict = {}
