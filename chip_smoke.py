@@ -663,6 +663,61 @@ def kernel_times(gen, dev, main_err: dict) -> dict:
     return rows
 
 
+#: granite-4.0-h-small's routed experts (E, k, d, f), timed at a B-1 decode
+#: and at the chat mix's median prompt
+MOE_EXPERTS = (72, 10, 4096, 768)
+MOE_TOKENS = (1, 1008)
+
+
+def moe_experts_times(gen, dev) -> dict:
+    """``ops.moe_experts`` (the grouped products) at granite-4.0-h-small's
+    widths against its plain per-expert loop, its bound (the routed
+    experts' weights read once, rows in and out; ``portbench/kernels/
+    moe_experts.py``) and, as the yardstick, the capacity dispatch's eager
+    path: three ``torch.bmm`` over an (E, C, d) buffer at ``_capacity``'s C
+    (8 rows an expert at a decode), which reads every expert's weights."""
+    from repro_torch.kernels import ops
+
+    E, k, d, f = MOE_EXPERTS
+    bf16 = torch.bfloat16
+    w = [torch.randn(E, a, b, generator=gen, device=dev).to(bf16) * a ** -0.5
+         for a, b in ((d, f), (d, f), (f, d))]
+    rows = []
+    for T in MOE_TOKENS:
+        ids = torch.stack([torch.randperm(E, generator=gen, device=dev)[:k] for _ in range(T)])
+        flat = ids.reshape(-1).sort().values
+        ends = torch.searchsorted(flat, torch.arange(E, device=dev), right=True).to(torch.int32)
+        x = torch.randn(T * k, d, generator=gen, device=dev).to(bf16)
+        got = ops.moe_experts(x, *w, ends)
+        want = ops.moe_experts(x, *w, ends, impl="ref")
+        err = (got.float() - want.float()).abs().max().item()
+        check(err <= 0.02 * want.float().abs().max().item(),
+              f"moe_experts T {T}: max abs err {err:.3e} against the plain loop")
+        hit = int((torch.diff(ends, prepend=ends.new_zeros(1)) > 0).sum())
+        flops = 6.0 * T * k * d * f
+        nb = 2 * (hit * 3 * d * f + 2 * T * k * d) + 4 * E
+        C = max(8, -(-int(T * k / E * 1.25) // 8) * 8)
+        buf = torch.zeros(E, C, d, dtype=bf16, device=dev)
+
+        def bmm():
+            h = F.silu(torch.bmm(buf, w[0])) * torch.bmm(buf, w[1])
+            return torch.bmm(h, w[2])
+        bound, by = bound_ms(nb, flops, bf16)
+        rows.append({"shape": f"T {T} x k {k} of E {E}, d {d}, f {f}, {hit} experts hit",
+                     "ms": time_ms(lambda: ops.moe_experts(x, *w, ends), iters=20),
+                     "plain_ms": time_ms(lambda: ops.moe_experts(x, *w, ends, impl="ref"),
+                                         iters=5),
+                     "library_ms": time_ms(bmm, iters=20), "bound_ms": bound, "bound_by": by,
+                     "max_abs_err": err})
+    for row in rows:
+        print(f"  moe_experts [{row['shape']}]: kernel {row['ms']:.5f} ms, plain "
+              f"{row['plain_ms']:.5f} ms, eager bmm path {row['library_ms']:.5f} ms, bound "
+              f"{row['bound_ms']:.5f} ms ({row['bound_by']}), max abs err "
+              f"{row['max_abs_err']:.3e}", flush=True)
+    ops.reset_launch_counts()        # timing launches are not the main path's
+    return {"moe_experts": dict(rows[0], at_other_shapes=rows[1:])}
+
+
 def ssd_row(gen, dev, shape) -> dict:
     """The scan's kernel, plain and bound times at ``shape`` (B, S, H, P,
     G, N, chunk), bf16, and its wrapper's host time."""
@@ -1275,8 +1330,10 @@ def per_call_counts(cfg) -> dict:
     cross-attention layer of a forward, and per encoder layer; decode
     attention per attention and cross-attention layer of a step; the SSD
     scan per mamba layer of a forward (a decode step is one plain
-    ``ssd_step``)."""
-    rms = flash = dec = scan = 0
+    ``ssd_step``); the grouped experts per dropless MoE layer of a forward
+    or a step."""
+    rms = flash = dec = scan = moe = 0
+    dropless = cfg.moe is not None and cfg.moe.dropless
     for i in range(cfg.num_layers):
         mamba = cfg.layer_kind(i) == "mamba"
         cross = cfg.layer_has_cross_attn(i) or cfg.family == "encdec"
@@ -1285,9 +1342,11 @@ def per_call_counts(cfg) -> dict:
         flash += (not mamba) + cross
         dec += (not mamba) + cross
         scan += mamba
+        moe += dropless and cfg.layer_has_moe(i)
     rms = rms + 1 if cfg.norm == "rmsnorm" else 0
     flash += cfg.enc_layers if cfg.family == "encdec" else 0
-    return {"rmsnorm": rms, "flash_attention": flash, "decode_attention": dec, "ssd_scan": scan}
+    return {"rmsnorm": rms, "flash_attention": flash, "decode_attention": dec, "ssd_scan": scan,
+            "moe_experts": moe}
 
 
 def expected_counts(cfg, seq: int) -> dict:
@@ -1309,6 +1368,7 @@ def expected_counts(cfg, seq: int) -> dict:
              "quantize_int8_vec": 0, "quantize_int8_scalar": 0}
     return {"rmsnorm": one["rmsnorm"] * n_fwd, "flash_attention": 2 * one["flash_attention"],
             "decode_attention": N_DECODE * one["decode_attention"],
+            "moe_experts": one["moe_experts"] * n_fwd,
             "ssd_scan": scans, **quant, "ssd_scan_tc": scans if tc else 0,
             "ssd_scan_simt": 0 if tc else scans}
 
@@ -1506,7 +1566,7 @@ def expected_train_counts(cfg) -> dict:
     recomputes the plain versions)."""
     L = cfg.num_layers
     return {"rmsnorm": 2 * 2 * L + 1, "flash_attention": 2 * L, "decode_attention": 0,
-            "ssd_scan": 0, "quantize_int8": 0, "dequantize_int8": 0, "ssd_scan_tc": 0,
+            "ssd_scan": 0, "moe_experts": 0, "quantize_int8": 0, "dequantize_int8": 0, "ssd_scan_tc": 0,
             "ssd_scan_simt": 0, "quantize_int8_vec": 0, "quantize_int8_scalar": 0}
 
 
@@ -3264,6 +3324,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     rows = kernel_times(gen, dev, kernel_checks(gen, dev, engine_lens))
     rows.update(quant_times(gen, dev, quant_checks(gen, dev)))
+    rows.update(moe_experts_times(gen, dev))
     print(f"  phase 3 wall {time.perf_counter() - t0:.1f} s", flush=True)
     timed("3b", grad_checks, gen, dev)
     t0 = time.perf_counter()
@@ -3294,11 +3355,14 @@ def main(argv=None) -> int:
                 "decode_attention": "src/repro/kernels/decode_attention.py:67",
                 "ssd_scan": "src/repro/kernels/ssd_scan.py:72",
                 "quantize_int8": "src/repro/kernels/comm_quant.py:89",
-                "dequantize_int8": "src/repro/kernels/comm_quant.py:112"}
-    source = {name: name for name in replaces} | {"quantize_int8": "comm_quant",
-                                                  "dequantize_int8": "comm_quant"}
+                "dequantize_int8": "src/repro/kernels/comm_quant.py:112",
+                "moe_experts": "none: the JAX package's MoE is batched products left to XLA"}
+    source = {name: f"src/repro_torch/kernels/csrc/{name}.cu" for name in replaces} | {
+        "quantize_int8": "src/repro_torch/kernels/csrc/comm_quant.cu",
+        "dequantize_int8": "src/repro_torch/kernels/csrc/comm_quant.cu",
+        "moe_experts": "src/repro_torch/kernels/moe_experts.py (torch._grouped_mm)"}
     kernels = [{"name": name, "route": "cuda",
-                "source": f"src/repro_torch/kernels/csrc/{source[name]}.cu",
+                "source": source[name],
                 "replaces": replaces[name], "launches": counts[name],
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],

@@ -122,9 +122,10 @@ def _qos_meta(qos) -> Optional[dict]:
 
 
 # Spec assumed for a bare "tcp://host:port" target: capability-class numbers
-# of the paper's cloud tier with memory effectively unconstrained, so the
-# scheduler never silently excludes an endpoint the caller didn't describe.
-DEFAULT_ENDPOINT_SPEC = replace(CLOUD_RTX, name="endpoint", mem_bytes=64e9)
+# of the paper's cloud tier with memory unconstrained, so the scheduler never
+# silently excludes an endpoint the caller didn't describe (a 64 GB guess
+# excluded granite-4.0-h-small's 64.4 GB, resident on an 80 GB card).
+DEFAULT_ENDPOINT_SPEC = replace(CLOUD_RTX, name="endpoint", mem_bytes=float("inf"))
 
 
 @dataclass(frozen=True)

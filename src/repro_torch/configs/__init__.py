@@ -15,6 +15,7 @@ from repro_torch.configs import moonshot_v1_16b_a3b # noqa: F401
 from repro_torch.configs import arctic_480b         # noqa: F401
 from repro_torch.configs import llama_3_2_vision_90b  # noqa: F401
 from repro_torch.configs import jamba_1_5_large_398b  # noqa: F401
+from repro_torch.configs import granite_4_0_h_small   # noqa: F401
 
 ARCH_IDS = [
     "granite-3-2b", "deepseek-7b", "minicpm-2b", "command-r-plus-104b",

@@ -19,6 +19,17 @@ from repro_torch.utils import round_up
 # ---------------------------------------------------------------------------
 
 VOCAB_PAD_MULTIPLE = 2048  # Megatron-style vocab padding for clean TP sharding
+#: metadata of a field the JAX package's config lacks
+PORT_ONLY = {"port_only": True}
+
+
+def _shared_repr(self) -> str:
+    """The dataclass repr without the fields the JAX package lacks where
+    they hold their defaults: a config both packages define keeps the repr,
+    and so the model fingerprint (``core.cache``), that the other computes."""
+    parts = [f"{f.name}={getattr(self, f.name)!r}" for f in dataclasses.fields(self)
+             if not (f.metadata.get("port_only") and getattr(self, f.name) == f.default)]
+    return f"{type(self).__name__}({', '.join(parts)})"
 
 
 @dataclass(frozen=True)
@@ -30,6 +41,10 @@ class MoEConfig:
     capacity_factor: float = 1.25
     router_aux_weight: float = 0.01
     every: int = 1                 # MoE layer stride (jamba: every 2nd layer)
+    # granite-4.0-h: no capacity, no dropped assignment
+    dropless: bool = field(default=False, metadata=PORT_ONLY)
+
+    __repr__ = _shared_repr
 
 
 @dataclass(frozen=True)
@@ -94,6 +109,15 @@ class ModelConfig:
     # big; costs get exact).  Runtime paths keep the rolled scans.
     unroll_blocks: bool = False
     notes: str = ""
+    # granite's scalars and NoPE; the defaults leave the arithmetic as it was
+    embedding_multiplier: float = field(default=1.0, metadata=PORT_ONLY)  # embedding times this
+    attention_multiplier: float = field(default=0.0, metadata=PORT_ONLY)  # 0: 1/sqrt(head_dim)
+    residual_multiplier: float = field(default=1.0, metadata=PORT_ONLY)   # each branch times this
+    logits_scaling: float = field(default=1.0, metadata=PORT_ONLY)        # logits over this
+    norm_eps: float = field(default=1e-6, metadata=PORT_ONLY)             # every RMSNorm's
+    nope: bool = field(default=False, metadata=PORT_ONLY)  # attention without RoPE
+
+    __repr__ = _shared_repr
 
     # ------------------------------------------------------------------
     def __post_init__(self):
@@ -104,6 +128,16 @@ class ModelConfig:
     @property
     def padded_vocab(self) -> int:
         return round_up(self.vocab_size, VOCAB_PAD_MULTIPLE)
+
+    @property
+    def uses_rope(self) -> bool:
+        """Self-attention rotates q and k (not an encoder-decoder's, nor NoPE)."""
+        return self.family != "encdec" and not self.nope
+
+    @property
+    def attn_scale(self) -> float:
+        """The attention scores' scale."""
+        return self.attention_multiplier or self.head_dim ** -0.5
 
     @property
     def is_attention_free(self) -> bool:
@@ -275,7 +309,7 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
         kw["moe"] = MoEConfig(
             num_experts=4, top_k=2, d_ff=32,
             dense_residual=cfg.moe.dense_residual,
-            capacity_factor=2.0, every=cfg.moe.every,
+            capacity_factor=2.0, every=cfg.moe.every, dropless=cfg.moe.dropless,
         )
     if cfg.ssm is not None:
         kw["ssm"] = SSMConfig(d_state=16, expand=2, head_dim=16, conv_kernel=4,

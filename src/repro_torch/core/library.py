@@ -9,7 +9,7 @@ as tensors on the executor's device (the parameters' device), a VLM's
 ``"vision"`` rows and an encoder-decoder's ``"frames"`` beside the
 ``"tokens"``; outputs are tensors the executor brings back to host numpy.
 
-On the card, a dense or SSM model's decode runs as one CUDA graph
+On the card, a dense, SSM or hybrid model's decode runs as one CUDA graph
 (:class:`DecodeGraph`): the host launches the step once instead of each of
 its kernels."""
 from __future__ import annotations
@@ -28,7 +28,7 @@ from repro_torch.utils import resolve_device, tree_flatten, tree_leaves, tree_ma
 #: the families whose decode step is held captured against eager on the card
 #: (``tests/test_torch_decode_graph.py``): their steps launch no
 #: host-synchronizing op.  The other families' decodes run eagerly.
-GRAPH_FAMILIES = frozenset({"dense", "ssm"})
+GRAPH_FAMILIES = frozenset({"dense", "ssm", "hybrid"})
 
 
 def make_model_library(cfg, max_cache_len: int = 256, device="cuda") -> dict:

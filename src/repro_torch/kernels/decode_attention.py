@@ -65,13 +65,13 @@ def split_plan(S: int, B: int, K: int, n_sm: int) -> tuple[int, int]:
     return split_len, max(1, -(-S // split_len))
 
 
-def decode_attention_cuda(q, k, v, kv_len):
+def decode_attention_cuda(q, k, v, kv_len, *, scale: float | None = None):
     """q: (B,K,G,D); k,v: (B,K,S,D); kv_len: (B,), on the card -> (B,K,G,D)
-    in q's dtype."""
+    in q's dtype, the scores scaled by ``scale`` (1/sqrt(D) when None)."""
     _build.require_cuda("decode_attention", q, k, v)
     kv_len = kv_len.to(device=q.device, dtype=torch.int32).contiguous()
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    return _launch(q, k, v, kv_len, out, _build.current_stream(q))
+    return _launch(q, k, v, kv_len, out, _build.current_stream(q), scale)
 
 
 def _device_state(dev):
@@ -102,7 +102,7 @@ def _buffers(state, n_pairs: int, n_part: int):
     return state[1], state[2]
 
 
-def _launch(q, k, v, kv_len, out, stream):
+def _launch(q, k, v, kv_len, out, stream, scale=None):
     global launches
     B, K, G, D = q.shape
     S = k.shape[2]
@@ -126,7 +126,7 @@ def _launch(q, k, v, kv_len, out, stream):
     fn = _build.function("avec_decode_attention", _ARGTYPES)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(), out.data_ptr(),
             part.data_ptr(), counter.data_ptr(), _build.dtype_code(q), _build.dtype_code(k),
-            B, K, G, S, D, split_len, n_split, float(D ** -0.5),
+            B, K, G, S, D, split_len, n_split, float(D ** -0.5 if scale is None else scale),
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3], stream)
     _build.check(rc, "decode_attention")
     launches += _build.launched()

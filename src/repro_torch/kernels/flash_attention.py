@@ -43,13 +43,15 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = ([_P, _P, _P, _P] + [_I] * 8 + [ctypes.c_float] + [_L] * 12 + [_P])
 
 
-def flash_attention_cuda(q, k, v, *, causal: bool = True, out=None):
-    """q: (B,H,Sq,D); k,v: (B,K,Sk,D), on the card -> (B,H,Sq,D).  ``out``,
-    if given, is a (B,H,Sq,D) tensor (any strides) that receives the result."""
+def flash_attention_cuda(q, k, v, *, causal: bool = True, scale: float | None = None,
+                         out=None):
+    """q: (B,H,Sq,D); k,v: (B,K,Sk,D), on the card -> (B,H,Sq,D), the scores
+    scaled by ``scale`` (1/sqrt(D) when None).  ``out``, if given, is a
+    (B,H,Sq,D) tensor (any strides) that receives the result."""
     _build.require_cuda("flash_attention", q, k, v)
     if out is None:
         out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    return _launch(q, k, v, causal, out, _build.current_stream(q))
+    return _launch(q, k, v, causal, out, _build.current_stream(q), scale)
 
 
 def kernel_inputs(q, k, v):
@@ -59,7 +61,7 @@ def kernel_inputs(q, k, v):
     return tuple(fix(t) for t in (q, k, v))
 
 
-def _launch(q, k, v, causal, out, stream):
+def _launch(q, k, v, causal, out, stream, scale=None):
     global launches
     B, H, Sq, D = q.shape
     K, Sk = k.shape[1], k.shape[2]
@@ -77,7 +79,7 @@ def _launch(q, k, v, causal, out, stream):
         out, memory_format=torch.contiguous_format)
     fn = _build.function("avec_flash_attention", _ARGTYPES)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dst.data_ptr(), _build.dtype_code(q),
-            B, H, K, Sq, Sk, D, int(bool(causal)), float(D ** -0.5),
+            B, H, K, Sq, Sk, D, int(bool(causal)), float(D ** -0.5 if scale is None else scale),
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *dst.stride()[:3], stream)
     _build.check(rc, "flash_attention")
     launches += _build.launched()

@@ -29,6 +29,7 @@ from repro_torch.distributed.dtensor import attention_per_shard, is_dtensor
 from repro_torch.kernels import comm_quant as _cq
 from repro_torch.kernels import decode_attention as _dec
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import moe_experts as _moe
 from repro_torch.kernels import rmsnorm as _rms
 from repro_torch.kernels import ssd_scan as _ssd
 from repro_torch.kernels.autograd import KernelFunction, needs_grad
@@ -37,6 +38,7 @@ from repro_torch.obs import trace as _trace
 # kernel name -> (module, the module's launch counter)
 _KERNELS = {"rmsnorm": (_rms, "launches"), "flash_attention": (_fa, "launches"),
             "decode_attention": (_dec, "launches"), "ssd_scan": (_ssd, "launches"),
+            "moe_experts": (_moe, "launches"),
             "quantize_int8": (_cq, "quantize_launches"),
             "dequantize_int8": (_cq, "dequantize_launches")}
 # branch of a kernel -> (module, its launch counter): the SSD scan's calls
@@ -112,43 +114,49 @@ def _counted(op):
 # ---------------------------------------------------------------------------
 
 @_counted
-def flash_attention(q, k, v, *, causal: bool = True, impl: str | None = None):
-    """Model layout q: (B,S,H,D), k/v: (B,T,K,D) -> (B,S,H,D).  A DTensor
-    goes shard by shard, each shard through this dispatch."""
+def flash_attention(q, k, v, *, causal: bool = True, scale: float | None = None,
+                    impl: str | None = None):
+    """Model layout q: (B,S,H,D), k/v: (B,T,K,D) -> (B,S,H,D); the scores
+    scaled by ``scale`` (1/sqrt(D) when None).  A DTensor goes shard by
+    shard, each shard through this dispatch."""
     if is_dtensor(q):
-        return attention_per_shard(partial(flash_attention, causal=causal, impl=impl), q, k, v)
+        return attention_per_shard(partial(flash_attention, causal=causal, scale=scale,
+                                           impl=impl), q, k, v)
     if not _use_kernel(q, impl):
-        return _flash_plain(q, k, v, causal=causal)
+        return _flash_plain(q, k, v, causal=causal, scale=scale)
     if needs_grad(q, k, v):
-        return KernelFunction.apply(_flash_kernel, _flash_plain, {"causal": causal}, q, k, v)
-    return _flash_kernel(q, k, v, causal=causal)
+        return KernelFunction.apply(_flash_kernel, _flash_plain,
+                                    {"causal": causal, "scale": scale}, q, k, v)
+    return _flash_kernel(q, k, v, causal=causal, scale=scale)
 
 
-def _flash_plain(q, k, v, *, causal):
+def _flash_plain(q, k, v, *, causal, scale):
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    return _fa.flash_attention_plain(qt, kt, vt, causal=causal).transpose(1, 2)
+    return _fa.flash_attention_plain(qt, kt, vt, causal=causal, scale=scale).transpose(1, 2)
 
 
-def _flash_kernel(q, k, v, *, causal):
+def _flash_kernel(q, k, v, *, causal, scale):
     out = q.new_empty(q.shape)
     _fa.flash_attention_cuda(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                             causal=causal, out=out.transpose(1, 2))
+                             causal=causal, scale=scale, out=out.transpose(1, 2))
     return out
 
 
 @_counted
-def decode_attention(q, k, v, kv_len, *, impl: str | None = None):
-    """Model layout q: (B,1,H,D), k/v: (B,S,K,D), kv_len (B,) -> (B,1,H,D).
-    A DTensor goes shard by shard, each shard through this dispatch."""
+def decode_attention(q, k, v, kv_len, *, scale: float | None = None, impl: str | None = None):
+    """Model layout q: (B,1,H,D), k/v: (B,S,K,D), kv_len (B,) -> (B,1,H,D);
+    the scores scaled by ``scale`` (1/sqrt(D) when None).  A DTensor goes
+    shard by shard, each shard through this dispatch."""
     if is_dtensor(q):
-        return attention_per_shard(partial(decode_attention, impl=impl), q, k, v, kv_len)
+        return attention_per_shard(partial(decode_attention, scale=scale, impl=impl),
+                                   q, k, v, kv_len)
     B, _, H, D = q.shape
     K = k.shape[2]
     qt = q.reshape(B, K, H // K, D)
     kt, vt = k.transpose(1, 2), v.transpose(1, 2)
     if not _use_kernel(q, impl):
-        return _dec.decode_attention_plain(qt, kt, vt, kv_len).reshape(B, 1, H, D)
-    return _dec.decode_attention_cuda(qt, kt, vt, kv_len).reshape(B, 1, H, D)
+        return _dec.decode_attention_plain(qt, kt, vt, kv_len, scale=scale).reshape(B, 1, H, D)
+    return _dec.decode_attention_cuda(qt, kt, vt, kv_len, scale=scale).reshape(B, 1, H, D)
 
 
 @_counted
@@ -175,6 +183,16 @@ def ssd_scan(x, dt, A, Bm, Cm, *, chunk: int = 256, impl: str | None = None):
         return KernelFunction.apply(_ssd.ssd_scan_cuda, _ssd.ssd_scan_plain, {"chunk": L},
                                     x, dt, A, Bm, Cm)
     return _ssd.ssd_scan_cuda(x, dt, A, Bm, Cm, chunk=L)
+
+
+@_counted
+def moe_experts(x, w_gate, w_up, w_down, offs, *, impl: str | None = None):
+    """x: (R, d) rows sorted by expert, expert e's ending at row ``offs[e]``
+    ((E,) int32 on x's device); w_gate, w_up (E, d, f), w_down (E, f, d) ->
+    (R, d): each row's expert's SwiGLU (``kernels/moe_experts.py``)."""
+    if not _use_kernel(x, impl):
+        return _moe.moe_experts_plain(x, w_gate, w_up, w_down, offs)
+    return _moe.moe_experts_cuda(x, w_gate, w_up, w_down, offs)
 
 
 def ssd_chunk_len(S: int, chunk: int) -> int:

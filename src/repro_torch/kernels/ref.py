@@ -9,6 +9,8 @@ the model runs (``models/ssd.py`` binds it as ``ssd_chunked``), not the
 per-step oracle of the JAX package's ``ref.ssd_scan``: the same function,
 without a Python loop over every position on the card.  ``quantize_int8``
 and ``dequantize_int8`` are the per-row int8 codec of ``comm_quant``.
+``moe_experts``, the grouped SwiGLU of a dropless MoE
+(``kernels/moe_experts.py``), has no counterpart in the JAX package.
 """
 from __future__ import annotations
 
@@ -18,13 +20,15 @@ import torch.nn.functional as F
 NEG_INF = -1e30
 
 
-def flash_attention(q, k, v, *, causal: bool = True):
-    """q: (B,H,Sq,D); k,v: (B,K,Sk,D); H % K == 0.  fp32 softmax."""
+def flash_attention(q, k, v, *, causal: bool = True, scale: float | None = None):
+    """q: (B,H,Sq,D); k,v: (B,K,Sk,D); H % K == 0.  fp32 softmax of the
+    scores times ``scale`` (1/sqrt(D) when None)."""
     B, H, Sq, D = q.shape
     K, Sk = k.shape[1], k.shape[2]
     G = H // K
     qr = q.reshape(B, K, G, Sq, D).float()
-    scores = torch.einsum("bkgqd,bksd->bkgqs", qr, k.float()) * (D ** -0.5)
+    scores = torch.einsum("bkgqd,bksd->bkgqs", qr, k.float()) * (
+        D ** -0.5 if scale is None else scale)
     if causal:
         iq = torch.arange(Sq, device=q.device)[:, None]
         ik = torch.arange(Sk, device=q.device)[None, :]
@@ -35,17 +39,34 @@ def flash_attention(q, k, v, *, causal: bool = True):
     return o.reshape(B, H, Sq, D).to(q.dtype)
 
 
-def decode_attention(q, k, v, kv_len):
-    """q: (B,K,G,D); k,v: (B,K,S,D); kv_len: (B,) valid lengths.
-    Returns (B,K,G,D)."""
+def decode_attention(q, k, v, kv_len, *, scale: float | None = None):
+    """q: (B,K,G,D); k,v: (B,K,S,D); kv_len: (B,) valid lengths; the scores
+    times ``scale`` (1/sqrt(D) when None).  Returns (B,K,G,D)."""
     B, K, G, D = q.shape
     S = k.shape[2]
-    scores = torch.einsum("bkgd,bksd->bkgs", q.float(), k.float()) * (D ** -0.5)
+    scores = torch.einsum("bkgd,bksd->bkgs", q.float(), k.float()) * (
+        D ** -0.5 if scale is None else scale)
     valid = torch.arange(S, device=q.device)[None, :] < kv_len.to(q.device)[:, None]
     scores = scores.masked_fill(~valid[:, None, None, :], NEG_INF)
     p = torch.softmax(scores, dim=-1)
     o = torch.einsum("bkgs,bksd->bkgd", p, v.float())
     return o.to(q.dtype)
+
+
+def moe_experts(x, w_gate, w_up, w_down, offs):
+    """x: (R, d) rows grouped by expert, expert e's the rows from
+    ``offs[e-1]`` (0 for the first) to ``offs[e]``; w_gate, w_up: (E, d, f);
+    w_down: (E, f, d).  Each group's SwiGLU ``(silu(x Wg) * (x Wu)) Wd`` in
+    x's dtype -> (R, d); rows past ``offs[E-1]`` are zero."""
+    out = x.new_zeros(x.shape)
+    start = 0
+    for e, end in enumerate(offs.tolist()):
+        if end > start:
+            xe = x[start:end]
+            h = F.silu(xe @ w_gate[e].to(x.dtype)) * (xe @ w_up[e].to(x.dtype))
+            out[start:end] = h @ w_down[e].to(x.dtype)
+        start = end
+    return out
 
 
 def rmsnorm(x, scale, eps: float = 1e-6):

@@ -71,7 +71,7 @@ import traceback
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
-from repro_torch.configs import SHAPES, get_arch, list_archs, shape_applicable
+from repro_torch.configs import ARCH_IDS, SHAPES, get_arch, shape_applicable
 from repro_torch.distributed import sharding as sh
 from repro_torch.launch.mesh import make_host_mesh, make_production_mesh, start_fake_world
 from repro_torch.launch.roofline import (COLLECTIVE_KINDS, analyze, model_flops_6nd,
@@ -438,7 +438,9 @@ def main(argv=None) -> None:
 
     shape_overrides = {k: v for k, v in (("seq_len", args.seq_len),
                                          ("global_batch", args.global_batch)) if v}
-    archs = [args.arch] if args.arch else list_archs()
+    # the assigned architectures: granite-4.0-h-small's dropless MoE has no
+    # per-shard rule on the dry-run's DTensors
+    archs = [args.arch] if args.arch else list(ARCH_IDS)
     shapes = [args.shape] if args.shape else list(SHAPES)
     meshes = {"single": ["single"], "multi": ["multi"], "both": ["single", "multi"],
               "host": ["host"]}[args.mesh]

@@ -88,7 +88,7 @@ def self_attention(cfg, p, x, positions, *, rope: bool = True, causal: bool = Tr
     """Full self-attention (train path; bidirectional for encoders).  x: (B,S,d)."""
     q = _project_q(cfg, p, x, positions, rope)
     k, v = _project_kv(cfg, p, x, positions, rope)
-    return _out_proj(p, ops.flash_attention(q, k, v, causal=causal))
+    return _out_proj(p, ops.flash_attention(q, k, v, causal=causal, scale=cfg.attn_scale))
 
 
 def self_attention_prefill(cfg, p, x, positions, cache: dict, *, rope: bool = True):
@@ -99,7 +99,7 @@ def self_attention_prefill(cfg, p, x, positions, cache: dict, *, rope: bool = Tr
     S = x.shape[1]
     q = _project_q(cfg, p, x, positions, rope)
     k, v = _project_kv(cfg, p, x, positions, rope)
-    o = ops.flash_attention(q, k, v, causal=True)
+    o = ops.flash_attention(q, k, v, causal=True, scale=cfg.attn_scale)
     cache["k"][:, :S] = k
     cache["v"][:, :S] = v
     return _out_proj(p, o), cache
@@ -154,7 +154,7 @@ def self_attention_decode(cfg, p, x, cache, at: DecodeIndex, *, rope: bool = Tru
     else:
         index_copy_(kc, 1, at.idx.reshape(1), k_new.to(kc.dtype))
         index_copy_(vc, 1, at.idx.reshape(1), v_new.to(vc.dtype))
-    o = ops.decode_attention(q, kc, vc, at.kv_len)
+    o = ops.decode_attention(q, kc, vc, at.kv_len, scale=cfg.attn_scale)
     return _out_proj(p, o), {"k": kc, "v": vc}
 
 
@@ -180,7 +180,7 @@ def cross_attention(cfg, p, x, context, kv: dict | None = None):
     q = _project_q(cfg, p, x, None, rope=False)
     k, v = kv["cross_k"], kv["cross_v"]
     dt = torch.promote_types(q.dtype, k.dtype)
-    o = ops.flash_attention(q.to(dt), k.to(dt), v.to(dt), causal=False)
+    o = ops.flash_attention(q.to(dt), k.to(dt), v.to(dt), causal=False, scale=cfg.attn_scale)
     return _out_proj(p, o.to(q.dtype))
 
 
@@ -191,7 +191,7 @@ def cross_attention_cached(cfg, p, x, cache):
     ck, cv = cache["cross_k"], cache["cross_v"]
     q = _project_q(cfg, p, x, None, rope=False)
     kv_len = torch.full((B,), ck.shape[1], dtype=torch.int32, device=x.device)
-    return _out_proj(p, ops.decode_attention(q, ck, cv, kv_len))
+    return _out_proj(p, ops.decode_attention(q, ck, cv, kv_len, scale=cfg.attn_scale))
 
 
 def init_attn_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,

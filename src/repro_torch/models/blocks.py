@@ -133,6 +133,12 @@ def decode_cache(cfg, cache: dict, dtype) -> dict:
 # Apply
 # ---------------------------------------------------------------------------
 
+def _branch(cfg, y):
+    """A residual branch's output as it is added: times
+    ``cfg.residual_multiplier`` (granite), in y's dtype."""
+    return y * cfg.residual_multiplier if cfg.residual_multiplier != 1.0 else y
+
+
 def _apply_layer(cfg, p: dict, h, *, positions, mode: str, cache: dict | None, pos,
                  context):
     """One layer.  Returns (h, new_cache, aux_loss: a tensor for a MoE
@@ -141,7 +147,9 @@ def _apply_layer(cfg, p: dict, h, *, positions, mode: str, cache: dict | None, p
     ``pos``, its step's ``attention.decode_index`` (None in a model without
     attention), and takes no ``positions``.  In a
     traced call (``obs.trace``) the mixer and FFN sublayers, each with its
-    norm and residual add, are booked as the ``mixer`` and ``ffn`` stages."""
+    norm and residual add, are booked as the ``mixer`` and ``ffn`` stages
+    (a MoE's ``route``, ``experts`` and ``shared`` inside ``ffn``).  Each
+    branch is scaled by ``cfg.residual_multiplier`` before its add."""
     aux = 0.0
     stages = _trace.CURRENT.stages
     t = time.perf_counter_ns() if stages is not None else 0
@@ -159,7 +167,7 @@ def _apply_layer(cfg, p: dict, h, *, positions, mode: str, cache: dict | None, p
             cache["ssm"].copy_(mc["ssm"])
             new_cache = cache
     else:
-        rope = cfg.family != "encdec"
+        rope = cfg.uses_rope
         if mode == "train":
             mix = attn.self_attention(cfg, p["attn"], normed, positions, rope=rope)
         elif mode == "prefill":
@@ -169,13 +177,13 @@ def _apply_layer(cfg, p: dict, h, *, positions, mode: str, cache: dict | None, p
             mix, new_cache = attn.self_attention_decode(cfg, p["attn"], normed, cache, pos,
                                                         rope=rope)
 
-    h = h + mix
+    h = h + _branch(cfg, mix)
     if stages is not None:
         t = stages.stage("mixer", t)
     if cfg.parallel_block and "mlp" in p:
         # command-r style: shared-norm parallel attn + ffn residual
         # (cross/moe never combined with parallel_block in assigned archs)
-        h = h + apply_mlp(cfg, p["mlp"], normed)
+        h = h + _branch(cfg, apply_mlp(cfg, p["mlp"], normed))
         if stages is not None:
             stages.stage("ffn", t)
         return h, new_cache, aux
@@ -202,7 +210,7 @@ def _apply_layer(cfg, p: dict, h, *, positions, mode: str, cache: dict | None, p
             y, aux = apply_moe(cfg, p["moe"], apply_norm(cfg, p["ffn_norm"], h))
         else:
             y = apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["ffn_norm"], h))
-        h = h + y
+        h = h + _branch(cfg, y)
         if stages is not None:
             stages.stage("ffn", t)
     return h, new_cache, aux

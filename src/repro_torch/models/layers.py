@@ -21,9 +21,10 @@ def norm_specs(cfg) -> dict:
             "bias": ParamSpec((cfg.d_model,), ("embed",), "zeros", dtype=torch.float32)}
 
 
-def apply_norm(cfg, p, x, eps: float = 1e-6):
+def apply_norm(cfg, p, x):
     """rmsnorm goes through the kernel (fp32 reduce, cast back to x.dtype);
-    layernorm stays plain."""
+    layernorm stays plain.  Both at ``cfg.norm_eps``."""
+    eps = cfg.norm_eps
     if cfg.norm == "rmsnorm":
         return ops.rmsnorm(x, p["scale"], eps=eps)
     xf = x.float()
@@ -47,21 +48,27 @@ def embed_specs(cfg) -> dict:
 
 
 def embed_tokens(cfg, p, tokens):
+    """The tokens' rows in the compute dtype, times ``cfg.embedding_multiplier``."""
     dt = getattr(torch, cfg.compute_dtype)
     if is_dtensor(tokens):
-        return embed_per_shard(p["tok"], tokens).to(dt)
-    return p["tok"][tokens.long()].to(dt)
+        h = embed_per_shard(p["tok"], tokens).to(dt)
+    else:
+        h = p["tok"][tokens.long()].to(dt)
+    return h * cfg.embedding_multiplier if cfg.embedding_multiplier != 1.0 else h
 
 
 def unembed(cfg, p, h):
-    """Project to padded-vocab fp32 logits; the pad columns are set to -1e30
-    (not -inf) so softmax and sampling are exact over the real vocab."""
+    """Project to padded-vocab fp32 logits, divided by ``cfg.logits_scaling``;
+    the pad columns are set to -1e30 (not -inf) so softmax and sampling are
+    exact over the real vocab."""
     if cfg.tie_embeddings:
         logits = h @ p["tok"].to(h.dtype).T
     else:
         logits = h @ p["head"].to(h.dtype)
     pad = torch.arange(cfg.padded_vocab, device=logits.device) >= cfg.vocab_size
     logits = logits.float()
+    if cfg.logits_scaling != 1.0:
+        logits = logits / cfg.logits_scaling
     if is_dtensor(logits):          # DTensor has no in-place rule for a partial sum
         return logits.masked_fill(pad, NEG_INF)
     return logits.masked_fill_(pad, NEG_INF)     # in place: no second logits buffer

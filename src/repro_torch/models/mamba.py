@@ -211,7 +211,7 @@ def mamba_forward(cfg, p, x, *, return_cache: bool = False):
                                    p["conv_C"], p["conv_bx"], p["conv_bB"], p["conv_bC"],
                                    hd=ssm.head_dim, n=ssm.d_state, chunk=ssm.chunk)
         window = _conv_window(pre, ck) if return_cache else None
-    y = _gated_norm(y, z, p["norm_scale"])
+    y = _gated_norm(y, z, p["norm_scale"], cfg.norm_eps)
     out = y @ p["wo"].to(y.dtype)
     if not return_cache:
         return out, None
@@ -239,7 +239,7 @@ def mamba_decode(cfg, p, x, cache):
                                            p["D"], p["conv_x"], p["conv_B"], p["conv_C"],
                                            p["conv_bx"], p["conv_bB"], p["conv_bC"],
                                            hd=ssm.head_dim, n=ssm.d_state)
-    y = _gated_norm(y, z, p["norm_scale"])
+    y = _gated_norm(y, z, p["norm_scale"], cfg.norm_eps)
     out = y @ p["wo"].to(y.dtype)
     return out, {"conv": new_conv, "ssm": new_state}
 

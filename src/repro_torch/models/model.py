@@ -166,6 +166,8 @@ def _xent_chunked(cfg, params, h, targets):
     Vp, ck = cfg.padded_vocab, cfg.xent_chunk
     if Vp % ck != 0:
         raise AssertionError((Vp, ck))
+    if cfg.logits_scaling != 1.0:
+        raise ValueError("the chunked cross-entropy does not scale the logits")
     return _ChunkedXent.apply(h, W, targets, cfg.tie_embeddings, cfg.vocab_size, ck)
 
 

@@ -1,4 +1,5 @@
-"""Mixture-of-Experts layer: top-k routing with capacity-bounded sort dispatch.
+"""Mixture-of-Experts layer: top-k routing with capacity-bounded sort
+dispatch, or dropless dispatch (``MoEConfig.dropless``).
 
 The JAX package's algorithm (``repro/models/moe.py``), with the same
 arithmetic: routing in fp32, the top-k probabilities renormalised, the
@@ -25,15 +26,33 @@ Two steps are written so that they give the same result on every call:
   token.  A CUDA ``index_add_`` sums in no fixed order, so two identical
   calls could differ in the last bit; here the outputs are gathered back
   into (G, T, k, d) through the inverse of the sort and summed over k.
+
+The dropless dispatch (granite-4.0-h) has no capacity and drops nothing:
+the T*k assignments, stably sorted by expert, are the rows of one (T*k, d)
+buffer, each expert's end row found on the device by a search of the sorted
+ids, and ``ops.moe_experts`` computes each expert's SwiGLU over its rows
+only.  Nothing is read back to the host, so a decode step through it can be
+captured as a CUDA graph, and a B-1 decode reads its k experts' weights
+alone.  The combine is the capacity path's: each output weighted by its
+renormalised probability, put back in (token, j) order, summed over k.
+
+In a traced call (``obs.trace``) each MoE layer books three stages inside
+the layer's ``ffn``: ``route`` (the router, the top-k and the dispatch into
+the expert-ordered buffer), ``experts`` (the routed experts and the
+combine) and ``shared`` (the dense residual FFN, where the config has one).
 """
 from __future__ import annotations
+
+import time
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.distributed.dtensor import is_dtensor
+from repro_torch.kernels import ops
 from repro_torch.models.mlp import apply_mlp, mlp_specs
 from repro_torch.models.params import ParamSpec
+from repro_torch.obs import trace as _trace
 
 #: profiler range around each MoE layer (routing, dispatch, experts, combine)
 MOE_SPAN = "apply_moe"
@@ -95,10 +114,63 @@ def route(cfg, xg, router):
 def apply_moe(cfg, p, x):
     """x: (B, S, d) -> (out (B, S, d), aux_loss fp32 scalar)."""
     with torch.profiler.record_function(MOE_SPAN):
-        return _apply_moe(cfg, p, x)
+        stages = _trace.CURRENT.stages
+        t = time.perf_counter_ns() if stages is not None else 0
+        y, aux, xg, t = (_apply_dropless if cfg.moe.dropless else _apply_moe)(cfg, p, x, stages, t)
+        if cfg.moe.dense_residual:
+            y = y + apply_mlp(cfg, p["dense"], xg)
+            if stages is not None:
+                stages.stage("shared", t)
+        return y.reshape(x.shape), aux
 
 
-def _apply_moe(cfg, p, x):
+def _aux_loss(cfg, probs, counts, n_assign: int):
+    """The Switch load-balancing term over all tokens: E * sum over experts
+    of (share of assignments) * (mean router probability)."""
+    m = cfg.moe
+    me = probs.mean(dim=(0, 1))                                  # (E,)
+    fe = counts.sum(dim=0).float() / n_assign
+    return m.router_aux_weight * m.num_experts * torch.sum(fe * me)
+
+
+def _apply_dropless(cfg, p, x, stages, t):
+    """The dropless dispatch over all B*S tokens -> (the routed experts'
+    sum (B*S, d), aux, the tokens (B*S, d), the next stage's start)."""
+    m = cfg.moe
+    d = x.shape[-1]
+    E, k = m.num_experts, m.top_k
+    xt = x.reshape(1, -1, d)
+    T = xt.shape[1]
+    dev = x.device
+
+    probs, top_p, top_e = route(cfg, xt, p["router"])
+    flat_e = top_e.reshape(T * k)
+    sort_idx = torch.argsort(flat_e, stable=True)
+    # each expert's end row in the sorted buffer, on the device (a search,
+    # not a count read back)
+    ends = torch.searchsorted(flat_e[sort_idx], torch.arange(E, device=dev), right=True)
+    counts = torch.diff(ends, prepend=ends.new_zeros(1))
+    aux = _aux_loss(cfg, probs, counts[None], T * k)
+    rows = xt[0].index_select(0, sort_idx // k)                  # (T*k, d)
+    if stages is not None:
+        t = stages.stage("route", t)
+
+    dt = x.dtype
+    out = ops.moe_experts(rows, p["w_gate"].to(dt), p["w_up"].to(dt), p["w_down"].to(dt),
+                          ends.to(torch.int32))
+    w = top_p.reshape(T * k)[sort_idx].to(dt)
+    contrib = out * w[:, None]
+    # back to (token, j) order: each sorted row to its own assignment's place
+    y = contrib.new_empty(contrib.shape).index_copy_(0, sort_idx, contrib)
+    y = y.reshape(T, k, d).sum(dim=1)
+    if stages is not None:
+        t = stages.stage("experts", t)
+    return y, aux, xt[0], t
+
+
+def _apply_moe(cfg, p, x, stages, t):
+    """The capacity-bounded dispatch -> (the routed experts' sum (G, T, d),
+    aux, the tokens (G, T, d), the next stage's start)."""
     m = cfg.moe
     B, S, d = x.shape
     E, k = m.num_experts, m.top_k
@@ -114,9 +186,7 @@ def _apply_moe(cfg, p, x):
     # (unlike bincount) reads no value back to the host
     counts = F.one_hot(flat_e, E).sum(dim=1)                     # (G,E)
     # load-balancing aux loss (Switch), computed over ALL tokens
-    me = probs.mean(dim=(0, 1))                                  # (E,)
-    fe = counts.sum(dim=0).float() / (G * T * k)
-    aux = m.router_aux_weight * E * torch.sum(fe * me)
+    aux = _aux_loss(cfg, probs, counts, G * T * k)
 
     # --- capacity-bounded sort dispatch --------------------------------------
     C = _capacity(cfg, T)
@@ -136,6 +206,8 @@ def _apply_moe(cfg, p, x):
     buf = buf[:-1].reshape(G, E, C, d)
     if cfg.moe_sharded_dispatch:
         buf = _constrain(buf, "data", "model", None, None)
+    if stages is not None:
+        t = stages.stage("route", t)
 
     # --- per-expert SwiGLU (batched GEMMs over experts) ----------------------
     dt = buf.dtype
@@ -151,7 +223,6 @@ def _apply_moe(cfg, p, x):
     contrib = out_flat.gather(1, dest[..., None].expand(-1, -1, d)) * w[..., None]
     inv = torch.argsort(sort_idx, dim=-1)                        # sorted -> (t, j) order
     y = contrib.gather(1, inv[..., None].expand(-1, -1, d)).reshape(G, T, k, d).sum(dim=2)
-
-    if m.dense_residual:
-        y = y + apply_mlp(cfg, p["dense"], xg)
-    return y.reshape(B, S, d), aux
+    if stages is not None:
+        t = stages.stage("experts", t)
+    return y, aux, xg, t

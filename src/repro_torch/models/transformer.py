@@ -105,8 +105,8 @@ def lm_decode_step(cfg, params, cache, tokens, pos, *, context=None):
     h = embed_tokens(cfg, params["embed"], tokens)
     cache = decode_cache(cfg, cache, h.dtype)
     kv = [layer["k"] for layer in cache["layers"] if "k" in layer]
-    at = (decode_index(cfg, pos, tokens.shape[0], kv[0].shape[2], tokens.device)
-          if kv else None)
+    at = (decode_index(cfg, pos, tokens.shape[0], kv[0].shape[2], tokens.device,
+                       rope=cfg.uses_rope) if kv else None)
     for bp, bc in zip(_unstack(params["blocks"]), _unstack(cache)):
         h, _, _ = apply_block(cfg, bp, h, positions=None, mode="decode", cache=bc, pos=at)
     return apply_norm(cfg, params["final_norm"], h), cache

@@ -33,11 +33,13 @@ A coalesced batch's ``h2d``, ``issue``, ``sync`` and ``d2h`` are divided
 among its calls, as ``compute_s`` is.  Inside ``issue`` the model step
 stamps *stages*, child spans (parent ``issue``) summed over the layers
 with their count: ``mixer`` (a layer's norm, attention or Mamba call and
-residual add) and ``ffn`` (the same for its MLP or MoE); and each
-``kernels.ops`` wrapper counts its calls and host time.  A decode replayed
-as a CUDA graph (``core.library.DecodeGraph``) books one ``replay`` stage
-instead (its inputs' refresh, the graph's launch and its output's copy),
-and no layer stage or wrapper runs.  Both accumulate into a
+residual add) and ``ffn`` (the same for its MLP or MoE), and inside
+``ffn`` a MoE layer's ``route`` (router, top-k, dispatch), ``experts``
+(the routed experts and the combine) and ``shared`` (its dense residual
+FFN); and each ``kernels.ops`` wrapper counts its calls and host time.
+A decode replayed as a CUDA graph (``core.library.DecodeGraph``) books one
+``replay`` stage instead (its inputs' refresh, the graph's launch and its
+output's copy), and no layer stage or wrapper runs.  Both accumulate into a
 :class:`Stages` that the executor puts on the running thread
 (:data:`CURRENT`) only for a traced call.
 
@@ -76,8 +78,11 @@ from repro_torch.obs.config import global_config
 
 SPAN_ORDER = ("serialize", "send", "unpack", "queue", "coalesce", "h2d",
               "issue", "sync", "d2h", "stitch", "respond")
-#: the stages a model step books inside ``issue``
-STAGES = ("mixer", "ffn", "replay")
+#: the stages a model step books inside ``issue``, and a MoE layer's
+#: inside ``ffn`` (``models/moe.py``)
+STAGES = ("mixer", "ffn", "replay", "route", "experts", "shared")
+#: a stage's parent span, where it is not ``issue``
+STAGE_PARENTS = {"route": "ffn", "experts": "ffn", "shared": "ffn"}
 #: records the sink keeps: about ten times the calls of the busiest
 #: benchmark window (1,589), so a window's records outlive it
 SINK_CAPACITY = 16384
@@ -169,7 +174,7 @@ class TraceRecord:
     def merge(self, rmeta: dict) -> None:
         """Fold a response's destination spans in: hops in canonical order
         (``{name: seconds}`` and their starts), then the stages under
-        ``issue``, and the wrapper counters."""
+        ``issue`` (a MoE's under ``ffn``), and the wrapper counters."""
         spans = rmeta.get("spans")
         if not spans:
             return
@@ -179,7 +184,7 @@ class TraceRecord:
         for name in names:
             self.add(name, starts.get(name), round(spans[name] * 1e9))
         for name, (start, dur, n) in (rmeta.get("stages") or {}).items():
-            self.add(name, start, dur, "issue", n)
+            self.add(name, start, dur, STAGE_PARENTS.get(name, "issue"), n)
         self.wrappers = tuple((op, calls, ns) for op, (calls, ns)
                               in (rmeta.get("wrappers") or {}).items())
 

@@ -1,7 +1,9 @@
 """On the card: the library's decode replayed as a CUDA graph
 (``core.library.DecodeGraph``) against the eager step (``models.model.
-decode_step``) on the tests' small dense and SSM configurations in bf16,
-cache 256: greedy tokens equal and logits bit-equal over 64 decodes,
+decode_step``) on the tests' small dense, SSM and hybrid configurations in
+bf16 (granite-4.0-h-small's: Mamba-2, NoPE attention, a dropless MoE with a
+shared expert; jamba's: Mamba, attention, a capacity-bounded MoE), cache
+256: greedy tokens equal and logits bit-equal over 64 decodes,
 whatever happens to the session's state between calls, and a replay's
 kernels, counted in a device trace, those of an eager step.  This file
 imports no JAX (the card's host has none), so it runs there without the
@@ -23,12 +25,15 @@ from repro_torch.utils import to_numpy_tree, tree_leaves
 
 CACHE = 256
 STEPS = 64
-#: the hand-written kernels a dense or SSM decode step launches, by the
-#: counter's key and the kernel's name in a device trace
+#: the hand-written kernels a decode step launches, by the counter's key and
+#: the kernel's name in a device trace
 STEP_KERNELS = {"rmsnorm": "rmsnorm_kernel", "decode_attention": "decode_split_kernel"}
+#: the grouped products of ``ops.moe_experts`` in a device trace, three a call
+GROUPED_GEMM = "GroupProblemShape"
 
 
-@pytest.fixture(params=["granite-3-2b", "mamba2-130m"])
+@pytest.fixture(params=["granite-3-2b", "mamba2-130m", "granite-4.0-h-small",
+                        "jamba-1.5-large-398b"])
 def model(request):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
@@ -166,8 +171,9 @@ def _device_launches(fn) -> dict:
         fn()
         torch.cuda.synchronize()
     names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    return {key: sum(bool(re.search(rf"\b{k}\b", n)) for n in names)
-            for key, k in STEP_KERNELS.items()}
+    return {**{key: sum(bool(re.search(rf"\b{k}\b", n)) for n in names)
+               for key, k in STEP_KERNELS.items()},
+            "grouped_gemm": sum(GROUPED_GEMM in n for n in names)}
 
 
 def _counters() -> dict:
@@ -178,8 +184,11 @@ def _counters() -> dict:
 def test_replays_launch_the_kernels_of_eager_steps(model):
     """The device runs a replay's kernels as it runs an eager step's, and no
     wrapper counts them: the counters count the capturing call's eager step
-    alone."""
+    alone.  The steps traced are as many layer-steps as the 2-layer models'
+    64 (a hybrid's 16 or 20 layers in 8 or 6 steps): the profiler drops a few
+    events of a trace ten times as long (7 of 3,008 rmsnorm launches seen)."""
     cfg, params = model
+    steps = max(1, STEPS * 2 // cfg.num_layers)
     lib = make_model_library(cfg, CACHE, device="cuda")
     prompt = _prompt(cfg, 19, 8)
     state = {}
@@ -188,22 +197,27 @@ def test_replays_launch_the_kernels_of_eager_steps(model):
         _, cache = M.prefill(cfg, params, {"tokens": prompt}, CACHE)
 
         def eager_steps():
-            for j in range(STEPS):
+            for j in range(steps):
                 M.decode_step(cfg, params, cache, {"tokens": prompt[:, :1], "pos": 19 + j})
         ops.reset_launch_counts()
         eager = _device_launches(eager_steps)
     counted = _counters()
-    assert eager["rmsnorm"] and eager == {k: counted[k] for k in STEP_KERNELS}
-    assert eager["decode_attention"] == (STEPS * cfg.num_layers if cfg.family == "dense" else 0)
+    assert eager["rmsnorm"] and {k: eager[k] for k in STEP_KERNELS} == {
+        k: counted[k] for k in STEP_KERNELS}
+    n_attn = sum(cfg.layer_kind(i) == "attn" for i in range(cfg.num_layers))
+    assert eager["decode_attention"] == steps * n_attn
+    dropless = cfg.moe is not None and cfg.moe.dropless
+    assert eager["grouped_gemm"] == 3 * counted["moe_experts"] == (
+        3 * steps * cfg.num_layers if dropless else 0)
     ops.reset_launch_counts()
     logits, replayed = _decode(lib, params, state, logits)         # the capture
     assert not replayed
-    assert _counters() == {k: n // STEPS for k, n in counted.items()}
+    assert _counters() == {k: n // steps for k, n in counted.items()}
     ops.reset_launch_counts()
 
     def replays():
         nonlocal logits
-        for _ in range(STEPS):
+        for _ in range(steps):
             logits, replayed = _decode(lib, params, state, logits)
             assert replayed
     assert _device_launches(replays) == eager

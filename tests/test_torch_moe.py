@@ -156,3 +156,91 @@ def test_capacity_equals_reference(t, e, k, cf):
     assert C % 8 == 0 and C >= 8
     if (t, e, k, cf) == (17, 2, 1, 1.0):
         assert C == 8 < 17 * 1 / 2         # below the balanced load, as the reference
+
+
+# ---------------------------------------------------------------------------
+# the dropless dispatch (granite-4.0-h), which the JAX package does not have
+# ---------------------------------------------------------------------------
+
+def _dropless_case(dense_residual: bool, T: int = 64, E: int = 8, skew: float = 3.0):
+    """(port cfg, torch params, x (1, T, d)) of a dropless MoE layer whose
+    router sends every token to expert 0 (a direction all tokens share,
+    which its router column reads ``skew`` times): T assignments to one
+    expert, past any capacity the capacity dispatch would give it."""
+    from dataclasses import replace
+
+    from repro_torch.models.params import init_params as t_init_params
+
+    tcfg = tconfigs.reduced(tconfigs.get_arch("granite-4.0-h-small"))
+    tcfg = replace(tcfg, moe=replace(tcfg.moe, num_experts=E, dense_residual=dense_residual))
+    assert tcfg.moe.dropless and tcfg.param_dtype == "float32"
+    p = t_init_params(TMoE.moe_specs(tcfg), 5, torch.float32, "cpu")
+    rng = np.random.default_rng(6)
+    u = torch.from_numpy(rng.standard_normal(tcfg.d_model).astype(np.float32))
+    u /= u.norm()
+    p["router"][:, 0] += skew * u
+    x = torch.from_numpy(rng.standard_normal((1, T, tcfg.d_model)).astype(np.float32)) + 2 * u
+    return tcfg, p, x
+
+
+def _per_expert_loop(tcfg, p, x):
+    """Each expert's SwiGLU on the rows routed to it, weighted by the
+    renormalised top-k probability; no capacity, nothing dropped."""
+    from repro_torch.models.mlp import apply_mlp
+
+    xt = x.reshape(-1, x.shape[-1])
+    probs = torch.softmax(xt @ p["router"], dim=-1)
+    top_p, top_e = torch.topk(probs, tcfg.moe.top_k, dim=-1)
+    top_p = top_p / top_p.sum(-1, keepdim=True)
+    y = torch.zeros_like(xt)
+    for e in range(tcfg.moe.num_experts):
+        tok, slot = torch.nonzero(top_e == e, as_tuple=True)
+        h = torch.nn.functional.silu(xt[tok] @ p["w_gate"][e]) * (xt[tok] @ p["w_up"][e])
+        y[tok] += top_p[tok, slot, None] * (h @ p["w_down"][e])
+    if tcfg.moe.dense_residual:
+        y = y + apply_mlp(tcfg, p["dense"], xt)
+    return y.reshape(x.shape)
+
+
+@pytest.mark.parametrize("dense_residual", [False, True], ids=["routed", "shared"])
+def test_dropless_dispatch_matches_a_per_expert_loop_under_skewed_routing(dense_residual):
+    from dataclasses import replace
+
+    tcfg, p, x = _dropless_case(dense_residual)
+    capacity = replace(tcfg, moe=replace(tcfg.moe, dropless=False))
+    dropped = _dropped(capacity, {"router": p["router"].numpy()}, x.numpy())
+    assert dropped >= x.shape[1] // 4           # the capacity dispatch drops many
+    y, aux = TMoE.apply_moe(tcfg, p, x)
+    torch.testing.assert_close(y, _per_expert_loop(tcfg, p, x), atol=TOL, rtol=TOL)
+    assert aux.ndim == 0 and torch.isfinite(aux)
+    yc, _ = TMoE.apply_moe(capacity, p, x)
+    assert not torch.allclose(yc, y, atol=1e-3)
+
+
+def test_dropless_aux_loss_is_the_capacity_dispatchs():
+    """The load-balancing term counts every assignment: with no drop the
+    two dispatches see the same counts and give the same aux loss."""
+    from dataclasses import replace
+
+    tcfg, p, x = _dropless_case(False, skew=0.0)
+    _, aux = TMoE.apply_moe(tcfg, p, x)
+    _, aux_c = TMoE.apply_moe(replace(tcfg, moe=replace(tcfg.moe, dropless=False)), p, x)
+    assert abs(float(aux) - float(aux_c)) <= TOL
+
+
+@pytest.mark.parametrize("T", [1, 3, 64])
+def test_dropless_rows_reach_every_routed_expert(T):
+    """``ops.moe_experts``' plain version is each group's SwiGLU, and the
+    dispatch's end rows cover all T*k assignments, whatever T."""
+    from repro_torch.kernels import ops
+
+    tcfg, p, x = _dropless_case(True, T=T)
+    torch.testing.assert_close(TMoE.apply_moe(tcfg, p, x)[0], _per_expert_loop(tcfg, p, x),
+                               atol=TOL, rtol=TOL)
+    E, d, f = p["w_gate"].shape
+    ends = torch.tensor([0, 2, 2, 5, 5, 5, 6, 6], dtype=torch.int32)[:E]
+    rows = torch.randn(6, d)
+    out = ops.moe_experts(rows, p["w_gate"], p["w_up"], p["w_down"], ends)
+    for e, (a, b) in enumerate(zip([0, *ends[:-1].tolist()], ends.tolist())):
+        h = torch.nn.functional.silu(rows[a:b] @ p["w_gate"][e]) * (rows[a:b] @ p["w_up"][e])
+        torch.testing.assert_close(out[a:b], h @ p["w_down"][e])
