@@ -408,6 +408,30 @@ def queued_ms(fn, iters: int = 50) -> float:
     raise CheckFailed(f"the host did not queue {iters} calls within the device's spin")
 
 
+def graph_ms(fn, calls: int = 20, replays: int = 5) -> float:
+    """Device time per call of ``fn`` replayed from a CUDA graph of
+    ``calls`` calls, by CUDA events around ``replays`` replays: the gaps
+    between its kernels included, as inside a captured decode step."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (calls * replays)
+
+
 def bound_ms(nbytes: int, flops: float, dtype) -> tuple[float, str]:
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
@@ -716,6 +740,84 @@ def moe_experts_times(gen, dev) -> dict:
               f"{row['max_abs_err']:.3e}", flush=True)
     ops.reset_launch_counts()        # timing launches are not the main path's
     return {"moe_experts": dict(rows[0], at_other_shapes=rows[1:])}
+
+
+#: the chat cells' Mamba-2 layers, timed at a B-1 decode step
+MAMBA_STEP_ARCHS = ("mamba2-130m", "granite-4.0-h-small")
+
+
+def mamba_step_inputs(gen, dev, cfg, B: int) -> tuple:
+    """A decode step's inputs at ``cfg``'s Mamba-2 widths, bf16 activations
+    and weights as the model stores them: (u, z, x, B, C, params, conv
+    cache, fp32 state)."""
+    s, d = cfg.ssm, cfg.d_model
+    H, P, N, ck = s.n_heads(d), s.head_dim, s.d_state, s.conv_kernel
+    di, gn = H * P, s.n_groups * N
+    f32 = torch.float32
+
+    def randn(*shape, std=1.0, dtype=torch.bfloat16):
+        return (torch.randn(*shape, generator=gen, device=dev) * std).to(dtype)
+
+    p = {"wdt": randn(d, H, std=d ** -0.5), "dt_bias": randn(H, std=0.5, dtype=f32) - 4,
+         "A_log": randn(H, std=0.5, dtype=f32) + 1, "D": randn(H, dtype=f32),
+         "conv_x": randn(ck, di, std=ck ** -0.5), "conv_B": randn(ck, gn, std=ck ** -0.5),
+         "conv_C": randn(ck, gn, std=ck ** -0.5), "conv_bx": randn(di, std=0.1),
+         "conv_bB": randn(gn, std=0.1), "conv_bC": randn(gn, std=0.1),
+         "norm_scale": randn(di, std=0.2, dtype=f32) + 1}
+    acts = [randn(B, 1, n) for n in (d, di, di, gn, gn)]
+    return (*acts, p, randn(B, ck - 1, di + 2 * gn), randn(B, H, P, N, std=0.5, dtype=f32))
+
+
+def mamba_step_times(gen, dev) -> dict:
+    """``ops.mamba_step`` at the chat cells' Mamba-2 widths (B 1, bf16)
+    against the plain chain it replaced (``kernels/ref.py``, some 40 kernels)
+    on the same inputs: the output within 2 % of its largest value (the
+    plain chain rounds the conv's x, B and C and y to bf16), the state
+    within 1 %, the conv window equal; each one's summed kernel time
+    (``time_ms``) and its time replayed from a CUDA graph (``graph_ms``:
+    the gaps between its kernels included), and the bound: the fp32 state read
+    and written once, the conv window read and written, the inputs, wdt,
+    the conv weights and the per-head and per-channel parameters read once,
+    the output written."""
+    from functools import partial
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+
+    rows = []
+    for arch in MAMBA_STEP_ARCHS:
+        cfg = get_arch(arch)
+        args = mamba_step_inputs(gen, dev, cfg, 1)
+        u, z, x, Bm, Cm, p, conv, ssm = args
+        conv_ref, ssm_ref = conv.clone(), ssm.clone()
+        want = ops.mamba_step(u, z, x, Bm, Cm, p, conv_ref, ssm_ref, eps=cfg.norm_eps,
+                              impl="ref")
+        got = ops.mamba_step(*args, eps=cfg.norm_eps)
+        err = (got.float() - want.float()).abs().max().item()
+        serr = (ssm - ssm_ref).abs().max().item()
+        check(err <= 0.02 * want.float().abs().max().item()
+              and serr <= 0.01 * ssm_ref.abs().max().item() and torch.equal(conv, conv_ref),
+              f"mamba_step {arch}: max abs err {err:.3e} (output), {serr:.3e} (state) against "
+              f"the plain chain, conv window equal")
+        H, P, N = ssm.shape[1:]
+        nb = 2 * nbytes(ssm, conv) + nbytes(u, z, x, Bm, Cm, got, *p.values())
+        flops = 2.0 * u.shape[-1] * H + 8.0 * H * P * N
+        bound, by = bound_ms(nb, flops, torch.float32)
+
+        kernel = partial(ops.mamba_step, *args, eps=cfg.norm_eps)
+        plain = partial(ops.mamba_step, *args, eps=cfg.norm_eps, impl="ref")
+        rows.append({"shape": f"{arch}: B 1, H {H}, P {P}, N {N}, d {u.shape[-1]}",
+                     "ms": time_ms(kernel, iters=50), "graph_ms": graph_ms(kernel),
+                     "plain_ms": time_ms(plain, iters=10), "plain_graph_ms": graph_ms(plain),
+                     "library_ms": None, "bound_ms": bound, "bound_by": by,
+                     "max_abs_err": err, "state_max_abs_err": serr})
+    for row in rows:
+        print(f"  mamba_step [{row['shape']}]: kernel {row['ms']:.5f} ms ({row['graph_ms']:.5f} "
+              f"in a graph), plain chain {row['plain_ms']:.5f} ms ({row['plain_graph_ms']:.5f} "
+              f"in a graph), bound {row['bound_ms']:.5f} ms ({row['bound_by']}), max abs err "
+              f"{row['max_abs_err']:.3e}", flush=True)
+    ops.reset_launch_counts()        # timing launches are not the main path's
+    return {"mamba_step": dict(rows[0], at_other_shapes=rows[1:])}
 
 
 def ssd_row(gen, dev, shape) -> dict:
@@ -1295,7 +1397,12 @@ def all_counts() -> dict:
 
 
 #: the hand-written kernels of a decode step, by counter key and kernel name
-STEP_KERNELS = {"rmsnorm": "rmsnorm_kernel", "decode_attention": "decode_split_kernel"}
+STEP_KERNELS = {"rmsnorm": "rmsnorm_kernel", "decode_attention": "decode_split_kernel",
+                "mamba_step": "mamba_step_kernel"}
+#: idle seconds at each end of a traced window: the profiler keeps only the
+#: kernels that lie wholly inside its window on the host's clock, and the
+#: device's timestamps, mapped onto that clock, may be off by microseconds
+EDGE_S = 0.05
 
 
 def measured_counts(fn) -> dict:
@@ -1310,8 +1417,10 @@ def measured_counts(fn) -> dict:
     ops.reset_launch_counts()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(EDGE_S)
         fn()
         torch.cuda.synchronize()
+        time.sleep(EDGE_S)
     names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     counts = all_counts()
     ran = {key: sum(bool(re.search(rf"\b{k}\b", n)) for n in names)
@@ -1322,53 +1431,55 @@ def measured_counts(fn) -> dict:
     return counts | ran
 
 
-def per_call_counts(cfg) -> dict:
-    """Kernel launches of one forward (a prefill or a score) and of one
-    decode step, from the model's structure: an rmsnorm per mixer norm, per
-    gated norm (mamba), per cross norm and per FFN norm, and the final
-    norm (none for a layernorm model); flash per attention layer and per
-    cross-attention layer of a forward, and per encoder layer; decode
-    attention per attention and cross-attention layer of a step; the SSD
-    scan per mamba layer of a forward (a decode step is one plain
-    ``ssd_step``); the grouped experts per dropless MoE layer of a forward
-    or a step."""
-    rms = flash = dec = scan = moe = 0
+def per_call_counts(cfg, step: bool = False) -> dict:
+    """Kernel launches of one forward (a prefill or a score), or with
+    ``step`` of one decode step, from the model's structure: an rmsnorm per
+    mixer norm, per cross norm, per FFN norm and, in a forward, per gated
+    norm (mamba), and the final norm (none for a layernorm model); per
+    mamba layer the SSD scan in a forward, one ``mamba_step`` (the mixer,
+    its gated norm included) in a step; the grouped experts per dropless
+    MoE layer of either.  Either holds flash's launches of a forward (per
+    attention and cross-attention layer, and per encoder layer) and decode
+    attention's of a step (per attention and cross-attention layer)."""
+    rms = flash = dec = scan = moe = mstep = 0
     dropless = cfg.moe is not None and cfg.moe.dropless
     for i in range(cfg.num_layers):
         mamba = cfg.layer_kind(i) == "mamba"
         cross = cfg.layer_has_cross_attn(i) or cfg.family == "encdec"
         ffn = not mamba or cfg.family != "ssm"
-        rms += 1 + mamba + cross + ffn
+        rms += 1 + (mamba and not step) + cross + ffn
         flash += (not mamba) + cross
         dec += (not mamba) + cross
-        scan += mamba
+        scan += mamba and not step
+        mstep += mamba and step
         moe += dropless and cfg.layer_has_moe(i)
     rms = rms + 1 if cfg.norm == "rmsnorm" else 0
     flash += cfg.enc_layers if cfg.family == "encdec" else 0
     return {"rmsnorm": rms, "flash_attention": flash, "decode_attention": dec, "ssd_scan": scan,
-            "moe_experts": moe}
+            "moe_experts": moe, "mamba_step": mstep}
 
 
 def expected_counts(cfg, seq: int) -> dict:
     """Kernel launches of one prefill and one score of ``seq`` tokens and
-    N_DECODE decodes (``per_call_counts``); each scan on the branch
+    N_DECODE decode steps (``per_call_counts``); each scan on the branch
     ``ssd_scan.tensor_core_branch`` names for the model's compute dtype,
     head dim, state dim and chunk length at ``seq`` (the tensor cores for
     mamba2-130m's P 64 and jamba-1.5-large's P 128 at S 1024)."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.ssd_scan import tensor_core_branch
 
-    one = per_call_counts(cfg)
-    n_fwd = 1 + N_DECODE + 1
+    one, step = per_call_counts(cfg), per_call_counts(cfg, step=True)
     scans = 2 * one["ssd_scan"]
     tc = cfg.ssm is None or tensor_core_branch(
         getattr(torch, cfg.compute_dtype), cfg.ssm.head_dim, cfg.ssm.d_state,
         ops.ssd_chunk_len(seq, cfg.ssm.chunk))
     quant = {"quantize_int8": 0, "dequantize_int8": 0,      # serving quantizes on the host
              "quantize_int8_vec": 0, "quantize_int8_scalar": 0}
-    return {"rmsnorm": one["rmsnorm"] * n_fwd, "flash_attention": 2 * one["flash_attention"],
-            "decode_attention": N_DECODE * one["decode_attention"],
-            "moe_experts": one["moe_experts"] * n_fwd,
+    return {"rmsnorm": 2 * one["rmsnorm"] + N_DECODE * step["rmsnorm"],
+            "flash_attention": 2 * one["flash_attention"],
+            "decode_attention": N_DECODE * step["decode_attention"],
+            "moe_experts": 2 * one["moe_experts"] + N_DECODE * step["moe_experts"],
+            "mamba_step": N_DECODE * step["mamba_step"],
             "ssd_scan": scans, **quant, "ssd_scan_tc": scans if tc else 0,
             "ssd_scan_simt": 0 if tc else scans}
 
@@ -1563,11 +1674,10 @@ def expected_train_counts(cfg) -> dict:
     each block's two rmsnorms and its attention run in the forward and
     again when backward recomputes the block; the final norm runs once
     outside the blocks; the backward itself launches nothing (it
-    recomputes the plain versions)."""
+    recomputes the plain versions); no other kernel runs."""
     L = cfg.num_layers
-    return {"rmsnorm": 2 * 2 * L + 1, "flash_attention": 2 * L, "decode_attention": 0,
-            "ssd_scan": 0, "moe_experts": 0, "quantize_int8": 0, "dequantize_int8": 0, "ssd_scan_tc": 0,
-            "ssd_scan_simt": 0, "quantize_int8_vec": 0, "quantize_int8_scalar": 0}
+    return {name: 0 for name in all_counts()} | {"rmsnorm": 2 * 2 * L + 1,
+                                                 "flash_attention": 2 * L}
 
 
 def row_bound(g):
@@ -2045,11 +2155,11 @@ def engine_decode_checks(eng, reqs) -> None:
             routes[routes["run"]].append((out[0], out[2]))
         return out
 
-    def attn_held(q, k, v, kv_len, *, impl=None):
-        out = attn(q, k, v, kv_len, impl=impl)
+    def attn_held(q, k, v, kv_len, *, scale=None, impl=None):
+        out = attn(q, k, v, kv_len, scale=scale, impl=impl)
         if held["on"]:
-            again = attn(q, k, v, kv_len)
-            want = attn(q, k, v, kv_len, impl="ref")
+            again = attn(q, k, v, kv_len, scale=scale)
+            want = attn(q, k, v, kv_len, scale=scale, impl="ref")
             held["calls"] += 1
             held["err"] = max(held["err"], max_err(out, want))
             held["same"] &= torch.equal(out, again)
@@ -3325,6 +3435,7 @@ def main(argv=None) -> int:
     rows = kernel_times(gen, dev, kernel_checks(gen, dev, engine_lens))
     rows.update(quant_times(gen, dev, quant_checks(gen, dev)))
     rows.update(moe_experts_times(gen, dev))
+    rows.update(mamba_step_times(gen, dev))
     print(f"  phase 3 wall {time.perf_counter() - t0:.1f} s", flush=True)
     timed("3b", grad_checks, gen, dev)
     t0 = time.perf_counter()
@@ -3356,7 +3467,8 @@ def main(argv=None) -> int:
                 "ssd_scan": "src/repro/kernels/ssd_scan.py:72",
                 "quantize_int8": "src/repro/kernels/comm_quant.py:89",
                 "dequantize_int8": "src/repro/kernels/comm_quant.py:112",
-                "moe_experts": "none: the JAX package's MoE is batched products left to XLA"}
+                "moe_experts": "none: the JAX package's MoE is batched products left to XLA",
+                "mamba_step": "none: a decode-step kernel with no TPU counterpart"}
     source = {name: f"src/repro_torch/kernels/csrc/{name}.cu" for name in replaces} | {
         "quantize_int8": "src/repro_torch/kernels/csrc/comm_quant.cu",
         "dequantize_int8": "src/repro_torch/kernels/csrc/comm_quant.cu",
@@ -3368,7 +3480,8 @@ def main(argv=None) -> int:
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                 "library_ms": r["library_ms"],
                 **{key: r[key] for key in ("host_us", "at_other_shapes", "per_exchange",
-                                           "per_exchange_fp32") if key in r},
+                                           "per_exchange_fp32", "graph_ms", "plain_graph_ms")
+                   if key in r},
                 **({"launches_by_branch": {"tensor_cores": counts["ssd_scan_tc"],
                                            "cuda_cores": counts["ssd_scan_simt"]}}
                    if name == "ssd_scan" else {}),

@@ -28,6 +28,8 @@ LIB_NAME = "libavec_kernels.so"
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 _fns: dict = {}
+#: device index -> [SM count, int32 counters, fp32 scratch, outgrown buffers]
+_pools: dict = {}
 #: seconds the last build took (0.0 when the cached library was loaded)
 last_build_s: float = 0.0
 
@@ -147,6 +149,51 @@ def launched() -> int:
     outside a graph; a device trace sees both."""
     import torch
     return 0 if torch.cuda.is_current_stream_capturing() else 1
+
+
+def _pool(dev) -> list:
+    import torch
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    pool = _pools.get(idx)
+    if pool is None:
+        pool = _pools[idx] = [torch.cuda.get_device_properties(idx).multi_processor_count,
+                              torch.zeros(0, dtype=torch.int32, device=dev),
+                              torch.empty(0, dtype=torch.float32, device=dev), []]
+    return pool
+
+
+def sm_count(dev) -> int:
+    """The SM count of CUDA device ``dev``, read once."""
+    return _pool(dev)[0]
+
+
+def scratch(dev, n_ints: int, n_floats: int):
+    """(int32 counters, fp32 scratch) of CUDA device ``dev``, one pool that
+    the decode kernels share (``decode_attention``, ``mamba_step``): each
+    kernel's last blocks reset the counters they took to zero, and the
+    scratch holds only what one launch writes and reads, so calls on one
+    device must run on one stream, one after another, as the model's do.
+    Reused from call to call, so the serving path allocates nothing; grown
+    by :func:`grow_scratch`."""
+    return grow_scratch(_pool(dev), n_ints, n_floats)
+
+
+def grow_scratch(pool: list, n_ints: int, n_floats: int):
+    """(counters, scratch) of ``pool``, grown to at least ``n_ints``
+    counters (zeroed) and ``n_floats`` floats.  A CUDA graph captured over a
+    call keeps addressing the buffers it was captured with, so an outgrown
+    buffer is kept, not freed; each growth at least doubles, so those kept
+    take less memory than the buffers in use."""
+    import torch
+    if pool[1].numel() < n_ints:
+        pool[3].append(pool[1])
+        pool[1] = torch.zeros(max(n_ints, 2 * pool[1].numel(), 256), dtype=torch.int32,
+                              device=pool[1].device)
+    if pool[2].numel() < n_floats:
+        pool[3].append(pool[2])
+        pool[2] = torch.empty(max(n_floats, 2 * pool[2].numel(), 1 << 16), dtype=torch.float32,
+                              device=pool[2].device)
+    return pool[1], pool[2]
 
 
 def require_cuda(name: str, *tensors) -> None:

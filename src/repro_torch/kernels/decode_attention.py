@@ -16,12 +16,9 @@ a cache that breaks the rule) and skips the keys past ``kv_len``; a split
 that starts past ``kv_len`` reads nothing.  Partials (m, l, acc) go to fp32
 scratch, and the last block of each (b, KV head) -- found by an integer
 counter -- merges them in split order: no float atomics, so two calls give
-bit-identical output.  The scratch (``torch.empty``) and the counters are
-kept per device and reused from call to call, which costs the serving path
-no allocation; calls on one device must therefore run on one stream, one
-after another, as the model's do.  A CUDA graph captured over a call keeps
-addressing the buffers it was captured with, so a buffer that grows keeps
-its predecessor alive.  Head dims 16, 64 and 128; G up to 64; q
+bit-identical output.  The scratch and the counters are the device's pool
+(``_build.scratch``), shared with ``mamba_step``: calls on one device must
+run on one stream, one after another, as the model's do.  Head dims 16, 64 and 128; G up to 64; q
 and the cache each float32 or bfloat16 (the library path gives both one
 dtype).
 
@@ -51,7 +48,6 @@ BLOCKS_PER_SM = 4        # blocks the plan aims for, per SM
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = ([_P] * 7 + [_I] * 9 + [ctypes.c_float] + [_L] * 12 + [_P])
-_device: dict = {}      # device index -> [SM count, counters, scratch, outgrown buffers]
 
 
 def split_plan(S: int, B: int, K: int, n_sm: int) -> tuple[int, int]:
@@ -74,34 +70,6 @@ def decode_attention_cuda(q, k, v, kv_len, *, scale: float | None = None):
     return _launch(q, k, v, kv_len, out, _build.current_stream(q), scale)
 
 
-def _device_state(dev):
-    """[SM count, int32 counters, fp32 scratch, outgrown buffers] of ``dev``."""
-    idx = dev.index if dev.index is not None else torch.cuda.current_device()
-    state = _device.get(idx)
-    if state is None:
-        state = _device[idx] = [torch.cuda.get_device_properties(idx).multi_processor_count,
-                                torch.zeros(0, dtype=torch.int32, device=dev),
-                                torch.empty(0, dtype=torch.float32, device=dev), []]
-    return state
-
-
-def _buffers(state, n_pairs: int, n_part: int):
-    """(counters, scratch) of a device's ``state``, grown to at least
-    ``n_pairs`` counters (zero between calls: the kernel resets them) and
-    ``n_part`` floats.  An outgrown buffer is kept, not freed (a captured
-    graph may address it); each growth at least doubles, so those kept
-    take less memory than the buffers in use."""
-    if state[1].numel() < n_pairs:
-        state[3].append(state[1])
-        state[1] = torch.zeros(max(n_pairs, 2 * state[1].numel(), 256), dtype=torch.int32,
-                               device=state[1].device)
-    if state[2].numel() < n_part:
-        state[3].append(state[2])
-        state[2] = torch.empty(max(n_part, 2 * state[2].numel(), 1 << 16), dtype=torch.float32,
-                               device=state[2].device)
-    return state[1], state[2]
-
-
 def _launch(q, k, v, kv_len, out, stream, scale=None):
     global launches
     B, K, G, D = q.shape
@@ -120,9 +88,8 @@ def _launch(q, k, v, kv_len, out, stream, scale=None):
         raise ValueError("decode_attention: out must be (B,K,G,D) with a unit last stride")
     q = _build.unit_last(q)
     k, v = _build.aligned_rows(k), _build.aligned_rows(v)
-    state = _device_state(q.device)
-    split_len, n_split = split_plan(S, B, K, state[0])
-    counter, part = _buffers(state, B * K, B * K * n_split * G * (D + 2))
+    split_len, n_split = split_plan(S, B, K, _build.sm_count(q.device))
+    counter, part = _build.scratch(q.device, B * K, B * K * n_split * G * (D + 2))
     fn = _build.function("avec_decode_attention", _ARGTYPES)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(), out.data_ptr(),
             part.data_ptr(), counter.data_ptr(), _build.dtype_code(q), _build.dtype_code(k),

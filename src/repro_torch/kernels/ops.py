@@ -29,6 +29,7 @@ from repro_torch.distributed.dtensor import attention_per_shard, is_dtensor
 from repro_torch.kernels import comm_quant as _cq
 from repro_torch.kernels import decode_attention as _dec
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import mamba_step as _mstep
 from repro_torch.kernels import moe_experts as _moe
 from repro_torch.kernels import rmsnorm as _rms
 from repro_torch.kernels import ssd_scan as _ssd
@@ -38,7 +39,7 @@ from repro_torch.obs import trace as _trace
 # kernel name -> (module, the module's launch counter)
 _KERNELS = {"rmsnorm": (_rms, "launches"), "flash_attention": (_fa, "launches"),
             "decode_attention": (_dec, "launches"), "ssd_scan": (_ssd, "launches"),
-            "moe_experts": (_moe, "launches"),
+            "moe_experts": (_moe, "launches"), "mamba_step": (_mstep, "launches"),
             "quantize_int8": (_cq, "quantize_launches"),
             "dequantize_int8": (_cq, "dequantize_launches")}
 # branch of a kernel -> (module, its launch counter): the SSD scan's calls
@@ -193,6 +194,20 @@ def moe_experts(x, w_gate, w_up, w_down, offs, *, impl: str | None = None):
     if not _use_kernel(x, impl):
         return _moe.moe_experts_plain(x, w_gate, w_up, w_down, offs)
     return _moe.moe_experts_cuda(x, w_gate, w_up, w_down, offs)
+
+
+@_counted
+def mamba_step(u, z, x, Bm, Cm, p: dict, conv, ssm, *, eps: float, impl: str | None = None):
+    """A Mamba-2 layer's decode step between its input projections and
+    ``wo``: u (B,1,d) the layer's normed input, z and x (B,1,di), Bm and Cm
+    (B,1,G*N) as the projections leave them; ``p`` the layer's parameters
+    as stored (``models.mamba.mamba_specs``); the cache leaves conv
+    (B,ck-1,conv_dim) and ssm (B,H,P,N) fp32 are written in place ->
+    rmsnorm(y * silu(z)) * norm_scale (B,1,di) in z's dtype, ready for
+    ``wo`` (``kernels/mamba_step.py``)."""
+    if not _use_kernel(z, impl):
+        return _mstep.mamba_step_plain(u, z, x, Bm, Cm, p, conv, ssm, eps=eps)
+    return _mstep.mamba_step_cuda(u, z, x, Bm, Cm, p, conv, ssm, eps=eps)
 
 
 def ssd_chunk_len(S: int, chunk: int) -> int:

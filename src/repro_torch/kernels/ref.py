@@ -10,7 +10,11 @@ per-step oracle of the JAX package's ``ref.ssd_scan``: the same function,
 without a Python loop over every position on the card.  ``quantize_int8``
 and ``dequantize_int8`` are the per-row int8 codec of ``comm_quant``.
 ``moe_experts``, the grouped SwiGLU of a dropless MoE
-(``kernels/moe_experts.py``), has no counterpart in the JAX package.
+(``kernels/moe_experts.py``), has no counterpart in the JAX package, nor has
+``mamba_step``, a Mamba-2 layer's decode step between its input projections
+and ``wo`` (``kernels/mamba_step.py``): it is the composition the model ran
+before the kernel, in the same order and roundings (``mamba_mix_step``, which
+the dry-run's per-shard decode also runs, then the gated norm).
 """
 from __future__ import annotations
 
@@ -150,3 +154,62 @@ def ssd_scan(x, dt, A, B, C, chunk: int, state0=None):
                            torch.exp(a).transpose(2, 3))
     y = (y_intra + y_inter).reshape(b, nc * L, h, p)[:, :s]
     return y.to(x.dtype), st
+
+
+def ssd_step(state, x_t, dt_t, A, B_t, C_t):
+    """Single SSD decode step.  state: (B,H,P,N); x_t: (B,H,P); dt_t: (B,H);
+    B_t/C_t: (B,G,N).  Returns (y_t (B,H,P), new_state fp32)."""
+    rep = x_t.shape[1] // B_t.shape[1]
+    dtf = dt_t.float()
+    da = torch.exp(dtf * A.float())
+    Bh, Ch = repeat_groups(B_t.float(), rep, 1), repeat_groups(C_t.float(), rep, 1)
+    sf = state.float() * da[..., None, None] + torch.einsum(
+        "bh,bhn,bhp->bhpn", dtf, Bh, x_t.float())
+    y = torch.einsum("bhn,bhpn->bhp", Ch, sf)
+    return y.to(x_t.dtype), sf
+
+
+def _conv_step(window, w, b):
+    """window: (B,ck,C) last ck inputs (current included); returns (B,C)."""
+    out = torch.einsum("bkc,kc->bc", window.float(), w.float())
+    return F.silu(out + b.float()).to(window.dtype)
+
+
+def mamba_mix_step(conv, xr, Br, Cr, dt, state, A, D, wx, wB, wC, bx, bB, bC, *, hd: int,
+                   n: int):
+    """One decode step of the conv and the SSD recurrence, and the D skip;
+    conv (B,ck-1,conv_dim) is the window before this token, dt (B,1,H)
+    post-softplus -> (y (B,1,di), new window, new state fp32)."""
+    B_, _, di = xr.shape
+    gn = Br.shape[-1]
+    pre = torch.cat([xr, Br, Cr], dim=-1)                         # (B,1,conv_dim)
+    window = torch.cat([conv.to(pre.dtype), pre], dim=1)
+    post = _conv_step(window, torch.cat([wx, wB, wC], dim=1), torch.cat([bx, bB, bC]))
+    x_t = post[:, :di].reshape(B_, -1, hd)
+    y_t, new_state = ssd_step(state, x_t, dt[:, 0], A,
+                              post[:, di:di + gn].reshape(B_, -1, n),
+                              post[:, di + gn:].reshape(B_, -1, n))
+    y_t = y_t + (D[None, :, None] * x_t.float()).to(y_t.dtype)
+    return y_t.reshape(B_, 1, di), window[:, 1:, :], new_state
+
+
+def mamba_step(u, z, x, Bm, Cm, p: dict, conv, ssm, *, eps: float):
+    """A Mamba-2 layer's decode step between its input projections and
+    ``wo``: u (B,1,d) the layer's normed input (the fp32 ``dt``
+    projection's), z and x (B,1,di), Bm and Cm (B,1,G*N); ``p`` the layer's
+    parameters; conv (B,ck-1,conv_dim) and ssm (B,H,P,N) fp32, the cache
+    leaves, written in place with the new window and state -> the gated,
+    normed y (B,1,di) in z's dtype."""
+    dt = F.softplus((u.float() @ p["wdt"].float()) + p["dt_bias"])
+    A = -torch.exp(p["A_log"])
+    # a state that autograd records is read through a copy, so the write in
+    # place below leaves the tensor it saved as it was
+    state = ssm.clone() if ssm.requires_grad else ssm
+    y, new_conv, new_state = mamba_mix_step(
+        conv, x, Bm, Cm, dt, state, A, p["D"], p["conv_x"], p["conv_B"], p["conv_C"],
+        p["conv_bx"], p["conv_bB"], p["conv_bC"], hd=ssm.shape[2], n=ssm.shape[3])
+    yf = (y * F.silu(z.float())).float()
+    out = rmsnorm(yf, p["norm_scale"], eps=eps).to(y.dtype)
+    conv.copy_(new_conv)
+    ssm.copy_(new_state)
+    return out

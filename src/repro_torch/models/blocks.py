@@ -161,10 +161,11 @@ def _apply_layer(cfg, p: dict, h, *, positions, mode: str, cache: dict | None, p
         else:
             if mode == "prefill":
                 mix, mc = mb.mamba_forward(cfg, p["mamba"], normed, return_cache=True)
-            else:  # decode
+            else:  # decode: on plain tensors the leaves come back written in place
                 mix, mc = mb.mamba_decode(cfg, p["mamba"], normed, cache)
-            cache["conv"].copy_(mc["conv"])
-            cache["ssm"].copy_(mc["ssm"])
+            for k in ("conv", "ssm"):
+                if mc[k] is not cache[k]:
+                    cache[k].copy_(mc[k])
             new_cache = cache
     else:
         rope = cfg.uses_rope

@@ -9,10 +9,12 @@ the card) where the reference calls ``ssd_chunked``, and the gated norm
 through ``ops.rmsnorm``.  The three convs run as one over the concatenated
 (x, B, C) channels, with the three weights concatenated: a depthwise conv
 is per channel, so the arithmetic is the reference's, and x, B and C reach
-the scan as strided views of the one output.  Decode is plain PyTorch (one
-``ssd_step``).  On the dry-run's DTensors the conv, the scan and the step
-run per shard (``distributed/dtensor.py``), with x's, B's and C's channels
-each placed as its own.
+the scan as strided views of the one output.  A decode step's mixer, from
+the input projections to ``wo``, is one ``ops.mamba_step`` (the CUDA kernel
+on the card), which writes the new conv window and state into the cache in
+place.  On the dry-run's DTensors the conv, the scan and the step run per
+shard (``distributed/dtensor.py``; the step through ``kernels/ref.py``
+``mamba_mix_step``), with x's, B's and C's channels each placed as its own.
 """
 from __future__ import annotations
 
@@ -21,8 +23,8 @@ import torch.nn.functional as F
 
 from repro_torch.distributed.dtensor import is_dtensor, ssm_per_shard
 from repro_torch.kernels import ops
+from repro_torch.kernels.ref import mamba_mix_step
 from repro_torch.models.params import ParamSpec
-from repro_torch.models.ssd import ssd_step
 
 
 # ---------------------------------------------------------------------------
@@ -69,12 +71,6 @@ def _causal_conv(x, w, b):
     return F.silu(out + b.to(x.dtype)[:, None]).transpose(1, 2).contiguous()
 
 
-def _conv_step(window, w, b):
-    """window: (B,ck,C) last ck inputs (current included); returns (B,C)."""
-    out = torch.einsum("bkc,kc->bc", window.float(), w.float())
-    return F.silu(out + b.float()).to(window.dtype)
-
-
 def _gated_norm(y, z, scale, eps=1e-6):
     """Mamba2 gated RMSNorm: rmsnorm(y * silu(z)) * scale, in fp32 through
     the rmsnorm kernel, cast back to y.dtype."""
@@ -82,14 +78,14 @@ def _gated_norm(y, z, scale, eps=1e-6):
     return ops.rmsnorm(yf, scale, eps=eps).to(y.dtype)
 
 
-def _project(cfg, p, x):
-    dt_ = x.dtype
-    z = x @ p["wz"].to(dt_)
-    xr = x @ p["wx"].to(dt_)
-    Br = x @ p["wB"].to(dt_)
-    Cr = x @ p["wC"].to(dt_)
-    dt = F.softplus((x.float() @ p["wdt"].float()) + p["dt_bias"])
-    return z, xr, Br, Cr, dt
+def _project(p, x):
+    """The z, x, B and C projections, in x's dtype."""
+    return tuple(x @ p[k].to(x.dtype) for k in ("wz", "wx", "wB", "wC"))
+
+
+def _dt(p, x):
+    """The fp32 dt projection, softplus-discretised."""
+    return F.softplus((x.float() @ p["wdt"].float()) + p["dt_bias"])
 
 
 # ---------------------------------------------------------------------------
@@ -117,23 +113,6 @@ def _mix(xr, Br, Cr, dt, A, D, wx, wB, wC, bx, bB, bC, *, hd: int, n: int, chunk
     y, final_state = ops.ssd_scan(xh, dt, A, Bh, Ch, chunk=chunk)
     y = y + (D[None, None, :, None] * xh.float()).to(y.dtype)
     return y.flatten(2), final_state, pre
-
-
-def _mix_step(conv, xr, Br, Cr, dt, state, A, D, wx, wB, wC, bx, bB, bC, *, hd: int, n: int):
-    """One decode step of the conv and the SSD recurrence; conv (B,ck-1,
-    conv_dim) is the window before this token -> (y (B,1,di), new window,
-    new state fp32)."""
-    B_, _, di = xr.shape
-    gn = Br.shape[-1]
-    pre = torch.cat([xr, Br, Cr], dim=-1)                         # (B,1,conv_dim)
-    window = torch.cat([conv.to(pre.dtype), pre], dim=1)
-    post = _conv_step(window, torch.cat([wx, wB, wC], dim=1), torch.cat([bx, bB, bC]))
-    x_t = post[:, :di].reshape(B_, -1, hd)
-    y_t, new_state = ssd_step(state, x_t, dt[:, 0], A,
-                              post[:, di:di + gn].reshape(B_, -1, n),
-                              post[:, di + gn:].reshape(B_, -1, n))
-    y_t = y_t + (D[None, :, None] * x_t.float()).to(y_t.dtype)
-    return y_t.reshape(B_, 1, di), window[:, 1:, :], new_state
 
 
 # ---------------------------------------------------------------------------
@@ -164,7 +143,7 @@ def _mix_shard(cfg, p, x, xr, Br, Cr, dt, A):
 
 
 def _mix_step_shard(cfg, p, x, conv, xr, Br, Cr, dt, state, A):
-    """``_mix_step``'s y and new state, on each device's shards: the conv
+    """``mamba_mix_step``'s y and new state, on each device's shards: the conv
     cache is split into x's, B's and C's channels first (replicated, then
     each placed as its channels)."""
     from torch.distributed.tensor import Replicate, Shard
@@ -177,8 +156,8 @@ def _mix_step_shard(cfg, p, x, conv, xr, Br, Cr, dt, state, A):
     cx, cB, cC = conv[..., :di], conv[..., di:di + gn], conv[..., di + gn:]
 
     def fn(cx, cB, cC, *a):
-        y, _, new_state = _mix_step(torch.cat([cx, cB, cC], dim=-1), *a,
-                                    hd=ssm.head_dim, n=ssm.d_state)
+        y, _, new_state = mamba_mix_step(torch.cat([cx, cB, cC], dim=-1), *a,
+                                         hd=ssm.head_dim, n=ssm.d_state)
         return y, new_state
 
     return ssm_per_shard(
@@ -198,7 +177,8 @@ def mamba_forward(cfg, p, x, *, return_cache: bool = False):
     in x.dtype, "ssm": (B,H,P,N) fp32}."""
     ssm = cfg.ssm
     ck = ssm.conv_kernel
-    z, xr, Br, Cr, dt = _project(cfg, p, x)
+    z, xr, Br, Cr = _project(p, x)
+    dt = _dt(p, x)
     A = -torch.exp(p["A_log"])
     if is_dtensor(x):
         # the window outside the shards: each rank's tail of B and C is whole
@@ -224,21 +204,19 @@ def mamba_forward(cfg, p, x, *, return_cache: bool = False):
 
 def mamba_decode(cfg, p, x, cache):
     """x: (B,1,d); cache {"conv": (B,ck-1,conv_dim), "ssm": (B,H,P,N)}.
-    Returns (out, new cache) as new tensors; the caller writes them into
-    its stacked cache."""
-    ssm = cfg.ssm
-    z, xr, Br, Cr, dt = _project(cfg, p, x)
+    Returns (out, new cache).  On plain tensors the step is one
+    ``ops.mamba_step``, which writes the cache leaves in place, and the new
+    cache is ``cache`` itself; on the dry-run's DTensors it returns new
+    tensors, which the caller writes into its stacked cache."""
+    z, xr, Br, Cr = _project(p, x)
+    if not is_dtensor(x):
+        y = ops.mamba_step(x, z, xr, Br, Cr, p, cache["conv"], cache["ssm"], eps=cfg.norm_eps)
+        return y @ p["wo"].to(y.dtype), cache
+    dt = _dt(p, x)
     A = -torch.exp(p["A_log"])
-    if is_dtensor(x):
-        y, new_state = _mix_step_shard(cfg, p, x, cache["conv"], xr, Br, Cr, dt,
-                                       cache["ssm"], A)
-        pre = torch.cat([xr, Br, Cr], dim=-1)           # the window outside, as the prefill's
-        new_conv = torch.cat([cache["conv"].to(pre.dtype), pre], dim=1)[:, 1:, :]
-    else:
-        y, new_conv, new_state = _mix_step(cache["conv"], xr, Br, Cr, dt, cache["ssm"], A,
-                                           p["D"], p["conv_x"], p["conv_B"], p["conv_C"],
-                                           p["conv_bx"], p["conv_bB"], p["conv_bC"],
-                                           hd=ssm.head_dim, n=ssm.d_state)
+    y, new_state = _mix_step_shard(cfg, p, x, cache["conv"], xr, Br, Cr, dt, cache["ssm"], A)
+    pre = torch.cat([xr, Br, Cr], dim=-1)               # the window outside, as the prefill's
+    new_conv = torch.cat([cache["conv"].to(pre.dtype), pre], dim=1)[:, 1:, :]
     y = _gated_norm(y, z, p["norm_scale"], cfg.norm_eps)
     out = y @ p["wo"].to(y.dtype)
     return out, {"conv": new_conv, "ssm": new_state}

@@ -7,7 +7,8 @@
                      ``kernels/csrc/ssd_scan.cu`` computes the same schedule.
 ``ssd_sequential`` — per-timestep linear recurrence (the semantic oracle, and
                      the shape of the single-token decode update).
-``ssd_step``       — one decode step.
+``ssd_step``       — one decode step (``kernels/ref.py``, where the plain
+                     version of the decode-step kernel runs it).
 
 Conventions: x (B,S,H,P), dt (B,S,H) [post-softplus], A (H,) [negative],
 B/C (B,S,G,N) with G groups broadcast over H heads.
@@ -16,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.ref import repeat_groups
+from repro_torch.kernels.ref import repeat_groups, ssd_step
 from repro_torch.kernels.ref import ssd_scan as ssd_chunked
 
 __all__ = ["ssd_chunked", "ssd_sequential", "ssd_step"]
@@ -40,16 +41,3 @@ def ssd_sequential(x, dt, A, B, C, state0=None):
         ys.append(torch.einsum("bhn,bhpn->bhp", Ch[:, t], state))
     y = torch.stack(ys, dim=1) if ys else xf.new_zeros(b, 0, h, p)
     return y.to(x.dtype), state
-
-
-def ssd_step(state, x_t, dt_t, A, B_t, C_t):
-    """Single decode step.  state: (B,H,P,N); x_t: (B,H,P); dt_t: (B,H);
-    B_t/C_t: (B,G,N).  Returns (y_t (B,H,P), new_state fp32)."""
-    rep = x_t.shape[1] // B_t.shape[1]
-    dtf = dt_t.float()
-    da = torch.exp(dtf * A.float())
-    Bh, Ch = repeat_groups(B_t.float(), rep, 1), repeat_groups(C_t.float(), rep, 1)
-    sf = state.float() * da[..., None, None] + torch.einsum(
-        "bh,bhn,bhp->bhpn", dtf, Bh, x_t.float())
-    y = torch.einsum("bhn,bhpn->bhp", Ch, sf)
-    return y.to(x_t.dtype), sf

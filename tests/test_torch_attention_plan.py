@@ -174,13 +174,14 @@ def test_flash_kernel_inputs_by_dtype():
 
 
 def test_decode_scratch_grows_by_doubling_and_keeps_what_it_outgrew():
+    """The pool the decode kernels share (``_build.scratch``)."""
     state = [132, torch.zeros(0, dtype=torch.int32), torch.empty(0), []]
-    counter, part = dk._buffers(state, 8, 1000)
+    counter, part = _build.grow_scratch(state, 8, 1000)
     assert (counter.numel(), part.numel()) == (256, 1 << 16)
-    assert dk._buffers(state, 8, 1000)[1] is part           # enough: reused
+    assert _build.grow_scratch(state, 8, 1000)[1] is part   # enough: reused
     first = part
-    _, part = dk._buffers(state, 8, (1 << 16) + 1)
+    _, part = _build.grow_scratch(state, 8, (1 << 16) + 1)
     assert part.numel() == 1 << 17 and any(t is first for t in state[3])
-    counter2, part2 = dk._buffers(state, 300, 3 << 17)
+    counter2, part2 = _build.grow_scratch(state, 300, 3 << 17)
     assert counter2.numel() == 512 and part2.numel() == 3 << 17
     assert any(t is counter for t in state[3]) and any(t is part for t in state[3])

@@ -10,6 +10,7 @@ imports no JAX (the card's host has none), so it runs there without the
 directory's ``conftest.py``:
 ``PYTHONPATH=src python -m pytest --noconftest -m card tests/test_torch_decode_graph.py``."""
 import re
+import time
 
 import pytest
 import torch
@@ -27,9 +28,14 @@ CACHE = 256
 STEPS = 64
 #: the hand-written kernels a decode step launches, by the counter's key and
 #: the kernel's name in a device trace
-STEP_KERNELS = {"rmsnorm": "rmsnorm_kernel", "decode_attention": "decode_split_kernel"}
+STEP_KERNELS = {"rmsnorm": "rmsnorm_kernel", "decode_attention": "decode_split_kernel",
+                "mamba_step": "mamba_step_kernel"}
 #: the grouped products of ``ops.moe_experts`` in a device trace, three a call
 GROUPED_GEMM = "GroupProblemShape"
+#: idle seconds at each end of a traced window: the profiler keeps only the
+#: kernels that lie wholly inside its window on the host's clock, and the
+#: device's timestamps, mapped onto that clock, may be off by microseconds
+EDGE_S = 0.05
 
 
 @pytest.fixture(params=["granite-3-2b", "mamba2-130m", "granite-4.0-h-small",
@@ -168,8 +174,10 @@ def _device_launches(fn) -> dict:
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(EDGE_S)
         fn()
         torch.cuda.synchronize()
+        time.sleep(EDGE_S)
     names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     return {**{key: sum(bool(re.search(rf"\b{k}\b", n)) for n in names)
                for key, k in STEP_KERNELS.items()},
@@ -206,6 +214,7 @@ def test_replays_launch_the_kernels_of_eager_steps(model):
         k: counted[k] for k in STEP_KERNELS}
     n_attn = sum(cfg.layer_kind(i) == "attn" for i in range(cfg.num_layers))
     assert eager["decode_attention"] == steps * n_attn
+    assert eager["mamba_step"] == steps * (cfg.num_layers - n_attn)
     dropless = cfg.moe is not None and cfg.moe.dropless
     assert eager["grouped_gemm"] == 3 * counted["moe_experts"] == (
         3 * steps * cfg.num_layers if dropless else 0)

@@ -301,7 +301,9 @@ def run(rank, world, shape, groups, head_dim, dtype, store_path, out_path):
     # plain tensors: prefill, one decode step, and the gradients of a loss
     pp = tree_map(lambda t: t.clone().requires_grad_(), p)
     out, cache = mb.mamba_forward(cfg, pp, x, return_cache=True)
-    dec, new = mb.mamba_decode(cfg, pp, x1, cache)
+    # a plain decode writes the cache it is given in place: it takes a copy,
+    # so the prefill's cache stays to be compared
+    dec, new = mb.mamba_decode(cfg, pp, x1, {k: v.clone() for k, v in cache.items()})
     (out.pow(2).sum() + dec.pow(2).sum()).backward()
     plain = {"out": out, "conv": cache["conv"], "ssm": cache["ssm"], "dec": dec,
              "new_conv": new["conv"], "new_ssm": new["ssm"]}

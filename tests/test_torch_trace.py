@@ -17,6 +17,7 @@ from repro_torch.core.library import make_model_library
 from repro_torch.core.transport import TCPChannel, TCPServer
 from repro_torch.kernels import decode_attention as _dec
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import mamba_step as _mstep
 from repro_torch.kernels import rmsnorm as _rms
 from repro_torch.kernels import ssd_scan as _ssd
 from repro_torch.models.model import abstract_params, init_params
@@ -132,13 +133,15 @@ def test_wrapper_counts_equal_the_ops_calls_of_the_step(served, monkeypatch):
     counting(_fa, "flash_attention_plain", "flash_attention")
     counting(_dec, "decode_attention_plain", "decode_attention")
     counting(_ssd, "ssd_scan_plain", "ssd_scan")
+    counting(_mstep, "mamba_step_plain", "mamba_step")
     L = cfg.num_layers
     T.get_sink().clear()
     toks = np.arange(1, 9, dtype=np.int32)[None]
+    # an SSM decode step's mixer, its gated norm included, is one mamba_step
     for call, want in [("prefill", {"rmsnorm": 2 * L + 1,
                                     "flash_attention" if kind == "dense" else "ssd_scan": L}),
-                       ("decode", {"rmsnorm": 2 * L + 1}
-                        | ({"decode_attention": L} if kind == "dense" else {}))]:
+                       ("decode", {"rmsnorm": 2 * L + 1, "decode_attention": L}
+                        if kind == "dense" else {"rmsnorm": L + 1, "mamba_step": L})]:
         made.clear()
         sess.call(call, {"tokens": toks if call == "prefill" else toks[:, :1]})
         counts = {op: calls for op, calls, _ in T.get_sink().last().wrappers}
