@@ -612,7 +612,7 @@ def ssd_checks(gen, dev) -> float:
         args = ssd_inputs(gen, dev, B, S, H, P, G, N, dt_)
         ops.reset_launch_counts()
         y, st = ops.ssd_scan(*args, chunk=L)
-        branch = {k: v for k, v in ops.branch_counts().items() if k.startswith("ssd_scan")}
+        branch = {k: v for k, v in ops.launch_counts().items() if k.startswith("ssd_scan_")}
         y2, st2 = ops.ssd_scan(*args, chunk=L)
         yr, sr = ops.ssd_scan(*args, chunk=L, impl="ref")
         torch.cuda.synchronize()
@@ -1034,7 +1034,7 @@ def quant_checks(gen, dev) -> dict:
             ops.reset_launch_counts()
             q, s = ops.quantize_int8(x)
             branch = "vec" if cols % (16 // x.element_size()) == 0 else "scalar"
-            took = ops.branch_counts()[f"quantize_int8_{branch}"] == 1
+            took = ops.launch_counts()[f"quantize_int8_{branch}"] == 1
             qr, sr = ops.quantize_int8(x, impl="ref")
             torch.cuda.synchronize()
             nan_q = (x.float() / sr).isnan()          # x / NaN and Inf / Inf
@@ -1077,7 +1077,7 @@ def quant_checks(gen, dev) -> dict:
         x = torch.randn(4096, 2049, generator=gen, device=dev).to(dt)[:, 1:]
         ops.reset_launch_counts()
         q, s = ops.quantize_int8(x)
-        took = ops.branch_counts()["quantize_int8_scalar"] == 1
+        took = ops.launch_counts()["quantize_int8_scalar"] == 1
         qr, sr = ops.quantize_int8(x, impl="ref")
         check(took and torch.equal(q, qr) and torch.equal(s, sr),
               f"quantize_int8 on x[:, 1:] of a (4096, 2049) {dt} tensor (rows off 16 bytes): "
@@ -1089,7 +1089,7 @@ def quant_checks(gen, dev) -> dict:
         x = near_tie_rows(gen, dev, absmax)
         ops.reset_launch_counts()
         q, s = ops.quantize_int8(x)
-        took = ops.branch_counts()["quantize_int8_vec"] == 1
+        took = ops.launch_counts()["quantize_int8_vec"] == 1
         qr, sr = ops.quantize_int8(x, impl="ref")
         check(took and torch.equal(q, qr) and torch.equal(s, sr),
               f"quantize_int8 on {tuple(x.shape)} near-tie rows, absmax {absmax:g}: vector branch, "
@@ -1389,13 +1389,6 @@ def small_train_check(arch: str, seed: int, dev) -> None:
 # phases 5 and 6: the main paths at full width
 # ---------------------------------------------------------------------------
 
-def all_counts() -> dict:
-    """Every kernel's launch count, and the SSD scan's and the quantize's by
-    branch."""
-    from repro_torch.kernels import ops
-    return {**ops.launch_counts(), **ops.branch_counts()}
-
-
 #: the hand-written kernels of a decode step, by counter key and kernel name
 STEP_KERNELS = {"rmsnorm": "rmsnorm_kernel", "decode_attention": "decode_split_kernel",
                 "mamba_step": "mamba_step_kernel"}
@@ -1422,7 +1415,7 @@ def measured_counts(fn) -> dict:
         torch.cuda.synchronize()
         time.sleep(EDGE_S)
     names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    counts = all_counts()
+    counts = ops.launch_counts()
     ran = {key: sum(bool(re.search(rf"\b{k}\b", n)) for n in names)
            for key, k in STEP_KERNELS.items()}
     check(all(counts[k] <= n for k, n in ran.items()),
@@ -1675,9 +1668,10 @@ def expected_train_counts(cfg) -> dict:
     again when backward recomputes the block; the final norm runs once
     outside the blocks; the backward itself launches nothing (it
     recomputes the plain versions); no other kernel runs."""
+    from repro_torch.kernels import ops
     L = cfg.num_layers
-    return {name: 0 for name in all_counts()} | {"rmsnorm": 2 * 2 * L + 1,
-                                                 "flash_attention": 2 * L}
+    return {name: 0 for name in ops.launch_counts()} | {"rmsnorm": 2 * 2 * L + 1,
+                                                        "flash_attention": 2 * L}
 
 
 def row_bound(g):
@@ -1728,7 +1722,7 @@ def train_path(seed: int, dev, profile: bool = False) -> dict:
     trainer = Trainer(cfg, ocfg, data, seed=seed, device=dev)
     ops.reset_launch_counts()
     rep = trainer.run(TRAIN_STEPS)
-    counts["trainer"] = all_counts()
+    counts["trainer"] = ops.launch_counts()
     want = {k: v * TRAIN_STEPS for k, v in expected_train_counts(cfg).items()}
     print(f"  Trainer.run({TRAIN_STEPS}): losses {[round(x, 5) for x in rep.losses]}, "
           f"wall {rep.wall_s:.2f} s (init included); launches {counts['trainer']}", flush=True)
@@ -1769,7 +1763,7 @@ def train_path(seed: int, dev, profile: bool = False) -> dict:
             reduced_g = compressed_grad_allreduce(groups, grads)
             torch.cuda.synchronize()
             exchange_s = time.perf_counter() - t0
-            counts["exchange"] = all_counts()
+            counts["exchange"] = ops.launch_counts()
         finally:
             dist.destroy_process_group()
     n_leaves = len(tree_leaves(grads))
@@ -1808,11 +1802,11 @@ def train_path(seed: int, dev, profile: bool = False) -> dict:
     ops.reset_launch_counts()
     residual = ErrorFeedback.init(grads)
     out, residual = ErrorFeedback.compress(grads, residual)
-    ef = all_counts()
+    ef = ops.launch_counts()
     del out, residual
     ctree, wire = compress_tree(grads)
     back = decompress_tree(ctree)
-    counts["compress"] = all_counts()
+    counts["compress"] = ops.launch_counts()
     check(ef["quantize_int8"] == ef["dequantize_int8"] == n_leaves
           and counts["compress"]["quantize_int8"] == counts["compress"]["dequantize_int8"]
           == counts["compress"]["quantize_int8_vec"] == 2 * n_leaves,
@@ -1979,7 +1973,7 @@ def openpose_path(seed: int, dev, profile: bool = False) -> tuple[dict, float]:
               f"bound {t_bound:.4f} ms by {by}), peak device memory {peak / 1e9:.3f} GB "
               f"({base / 1e9:.3f} GB allocated before the call)",
               flush=True)
-        counts = all_counts()
+        counts = ops.launch_counts()
         print(f"  launches on the main path: {counts}", flush=True)
         check(not any(counts.values()), "phase 8 launches none of the six kernels "
               "(its convolutions are cuDNN's)")
@@ -2427,7 +2421,7 @@ def frontdoor_path(seed: int, dev, served: dict, profile: bool = False) -> dict:
             ops.reset_launch_counts()
             whole = host_float(sess.call("hidden", {"tokens": htoks}, shard=False)["hidden"])
             split = host_float(sess.call("hidden", {"tokens": htoks}, shard=True)["hidden"])
-            counts = all_counts()
+            counts = ops.launch_counts()
         finally:
             global_config().unset("shard_min_rows")
         add_counts(total, counts)
@@ -2451,7 +2445,7 @@ def frontdoor_path(seed: int, dev, served: dict, profile: bool = False) -> dict:
         t0 = time.perf_counter()
         res = sess.map("score", reqs)
         wall = time.perf_counter() - t0
-        counts = all_counts()
+        counts = ops.launch_counts()
         add_counts(total, counts)
         assigned = sess.last_map_stats["assigned"]
         served = sess.last_map_stats["served_by"]
@@ -2507,7 +2501,7 @@ def frontdoor_path(seed: int, dev, served: dict, profile: bool = False) -> dict:
     out = eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = all_counts()
+    counts = ops.launch_counts()
     add_counts(total, counts)
     n_tok = sum(len(v) for v in out.values())
     print(f"  engine: {n_tok} tokens in {wall:.3f} s, {n_tok / wall:.1f} tokens/s, "
@@ -2573,7 +2567,7 @@ def moe_engine_path(cfg, seed: int, dev, profile: bool = False) -> dict:
     out = eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = all_counts()
+    counts = ops.launch_counts()
     n_tok = sum(len(v) for v in out.values())
     print(f"  engine: {n_tok} tokens in {wall:.3f} s, {n_tok / wall:.1f} tokens/s, "
           f"{eng.steps} steps; launches {counts}", flush=True)
@@ -2712,7 +2706,7 @@ def xent_path(seed: int, dev) -> dict:
         ops.reset_launch_counts()
         with torch.no_grad():
             h = M.forward_hidden(cfg, params, small)[0].float()
-        add_counts(total, all_counts())
+        add_counts(total, ops.launch_counts())
         W = params["embed"][key]
         loss_d, dh_d = xent_and_grad_h(cfg, W, h, small["targets"])
         t0 = time.perf_counter()
@@ -2729,7 +2723,7 @@ def xent_path(seed: int, dev) -> dict:
         ops.reset_launch_counts()
         with torch.no_grad():
             h = M.forward_hidden(cfg, params, batch)[0]
-        add_counts(total, all_counts())
+        add_counts(total, ops.launch_counts())
         res = {}
         for impl in ("full", "chunked"):
             c = with_overrides(cfg, xent_impl=impl)
@@ -2739,7 +2733,7 @@ def xent_path(seed: int, dev) -> dict:
             loss, _, grads = loss_and_grads(c, params, batch)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            counts, step_peak = all_counts(), torch.cuda.max_memory_allocated() - base
+            counts, step_peak = ops.launch_counts(), torch.cuda.max_memory_allocated() - base
             add_counts(total, counts)
             kept = {key: grads["embed"][key].cpu(), "final_norm": grads["final_norm"]["scale"].cpu()}
             del grads
@@ -2793,7 +2787,7 @@ def xent_path(seed: int, dev) -> dict:
         _, _, m = step(params, opt, data.batch(1), 0)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        counts = all_counts()
+        counts = ops.launch_counts()
         add_counts(total, counts)
         check(counts == expected_train_counts(cfg) and np.isfinite(m["loss"].item())
               and np.isfinite(m["grad_norm"].item())
@@ -3033,7 +3027,7 @@ def twins_path(seed: int, dev) -> dict:
     ops.reset_launch_counts()
     res = quickstart.run("granite-3-2b", device=dev, echo=echo_as("12c"))
     torch.cuda.synchronize()
-    counts = all_counts()
+    counts = ops.launch_counts()
     add_counts(total, counts)
     losses = res["losses"]
     print(f"  launches in 12c: {counts}", flush=True)
@@ -3115,7 +3109,7 @@ def bench_kernels_path(dev, card: str) -> dict:
     ops.reset_launch_counts()
     rows = micro.bench_kernels(device=dev)
     torch.cuda.synchronize()
-    counts = all_counts()
+    counts = ops.launch_counts()
     want = {name: 0 for name in counts} | {
         "rmsnorm": BENCH_CALLS, "flash_attention": BENCH_CALLS,
         "quantize_int8": BENCH_CALLS, "quantize_int8_vec": BENCH_CALLS}
@@ -3168,7 +3162,7 @@ def bench_engine_path(dev, card: str) -> dict:
     ops.reset_launch_counts()
     rows = micro.bench_engine(cfg, device=dev)
     torch.cuda.synchronize()
-    counts = all_counts()
+    counts = ops.launch_counts()
     ticks, one = engine_ticks(n_reqs, new, slots), per_call_counts(cfg)
     want = {name: 0 for name in counts} | {
         "rmsnorm": one["rmsnorm"] * (n_reqs + ticks),
@@ -3232,7 +3226,7 @@ def bench_moe_path(dev, card: str) -> dict:
     ops.reset_launch_counts()
     rows = micro.bench_moe_dispatch(cfg, device=dev)
     torch.cuda.synchronize()
-    counts = all_counts()
+    counts = ops.launch_counts()
     (name, us, derived), = rows
     peak = torch.cuda.max_memory_allocated()
     gc.collect()

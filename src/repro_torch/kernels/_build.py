@@ -10,6 +10,7 @@ objects link into ``libavec_kernels.so``.  Nothing here runs at import.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -30,6 +31,10 @@ _lib: ctypes.CDLL | None = None
 _fns: dict = {}
 #: device index -> [SM count, int32 counters, fp32 scratch, outgrown buffers]
 _pools: dict = {}
+#: launches by kernel name and, where a wrapper picked a branch, by branch
+#: name, made outside CUDA graph captures (:func:`count`; read by
+#: ``ops.launch_counts``)
+launches: collections.Counter = collections.Counter()
 #: seconds the last build took (0.0 when the cached library was loaded)
 last_build_s: float = 0.0
 
@@ -125,6 +130,31 @@ def function(name: str, argtypes: list):
     return fn
 
 
+def launch(entry: str, argtypes: list, args: tuple, *names: str) -> None:
+    """Call C entry point ``entry`` (:func:`function`) with ``args``, raise
+    on a refused or failed launch, then :func:`count` one launch of each of
+    ``names``: the kernel's and, where the wrapper picked a branch, the
+    branch's.  The entry returns the ``cudaGetLastError()`` right after its
+    launch, or -1 for an unsupported shape or type."""
+    rc = function(entry, argtypes)(*args)
+    if rc != 0:
+        what = "unsupported arguments" if rc < 0 else f"cudaError_t {rc}"
+        raise RuntimeError(f"CUDA kernel {'/'.join(names)} failed to launch: {what}")
+    count(*names)
+
+
+def count(*names: str) -> None:
+    """Add one launch to each of ``names`` in :data:`launches`, or nothing
+    while the current stream is being captured into a CUDA graph, where the
+    launch is recorded and runs nothing.  A graph's replays run its kernels
+    without their wrappers, so the counts hold only launches made outside a
+    graph; a device trace sees both."""
+    import torch
+    if not torch.cuda.is_current_stream_capturing():
+        for name in names:
+            launches[name] += 1
+
+
 _DTYPE_CODES = {"float32": 0, "bfloat16": 1}    # csrc/common.cuh avec::DType
 
 
@@ -139,16 +169,6 @@ def current_stream(t) -> int:
     """PyTorch's current stream on ``t``'s device, as an int for ctypes."""
     import torch
     return torch.cuda.current_stream(t.device).cuda_stream
-
-
-def launched() -> int:
-    """What a wrapper adds to its launch counter after a launch: 1, or 0
-    while the current stream is being captured into a CUDA graph, where the
-    launch is recorded and runs nothing.  A graph's replays run its kernels
-    without their wrappers, so the counters count only launches made
-    outside a graph; a device trace sees both."""
-    import torch
-    return 0 if torch.cuda.is_current_stream_capturing() else 1
 
 
 def _pool(dev) -> list:
@@ -168,13 +188,15 @@ def sm_count(dev) -> int:
 
 
 def scratch(dev, n_ints: int, n_floats: int):
-    """(int32 counters, fp32 scratch) of CUDA device ``dev``, one pool that
-    the decode kernels share (``decode_attention``, ``mamba_step``): each
-    kernel's last blocks reset the counters they took to zero, and the
-    scratch holds only what one launch writes and reads, so calls on one
-    device must run on one stream, one after another, as the model's do.
-    Reused from call to call, so the serving path allocates nothing; grown
-    by :func:`grow_scratch`."""
+    """(int32 counters, fp32 scratch) of CUDA device ``dev``, the one pool
+    of the kernels that need scratch: ``decode_attention``, ``mamba_step``
+    and the SSD scan's tensor-core branch (which carves its bf16 regions
+    from the same bytes, ``ssd_scan.tc_scratch``).  The contract they share:
+    the counters are zero between calls (each kernel's last blocks reset
+    the counters they took), and the scratch holds only what one launch
+    writes and reads, so calls on one device must run on one stream, one
+    after another, as the model's do.  Reused from call to call, so the
+    serving path allocates nothing; grown by :func:`grow_scratch`."""
     return grow_scratch(_pool(dev), n_ints, n_floats)
 
 
@@ -230,12 +252,3 @@ def aligned_rows(t):
     every row a multiple of 16 bytes)."""
     import torch
     return t if rows_aligned(t) else t.clone(memory_format=torch.contiguous_format)
-
-
-def check(rc: int, name: str) -> None:
-    """Raise on a refused or failed launch (the C function returns the
-    ``cudaGetLastError()`` right after it, or -1 for an unsupported shape
-    or type)."""
-    if rc != 0:
-        what = "unsupported arguments" if rc < 0 else f"cudaError_t {rc}"
-        raise RuntimeError(f"CUDA kernel {name} failed to launch: {what}")

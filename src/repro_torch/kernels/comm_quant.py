@@ -18,8 +18,8 @@ rows packed per block, at least ``MIN_PER`` vectors a thread; shared with
 rmsnorm), reduces the NaN-propagating max of ``|x|`` over the row's threads
 and writes ``q`` from the registers.  Rows off 16 bytes or a D that is not
 a multiple of the vector take a scalar loop in the same kernel: dispatch by
-alignment and shape, counted per branch (``quantize_launches_vec`` /
-``quantize_launches_scalar``).  ``q`` is bit-exact with the plain version
+alignment and shape, counted per branch (``quantize_int8_vec`` /
+``quantize_int8_scalar``).  ``q`` is bit-exact with the plain version
 (the IEEE quotient, round half to even; the kernel multiplies by a per-row
 reciprocal and divides only near a tie, ``csrc/comm_quant.cu``).  The
 kernel reads bf16 directly, whose conversion to fp32 is exact, so
@@ -34,9 +34,7 @@ stride; ``leaf_rows`` of a non-contiguous leaf is a contiguous copy.
 ``quantize_int8_cuda`` / ``dequantize_int8_cuda`` launch the kernels (or
 raise); :func:`quantize_int8_plain` / :func:`dequantize_int8_plain` (from
 ``kernels/ref.py``) are the plain versions ``ops`` takes for tensors on the
-CPU.  ``quantize_launches`` and ``dequantize_launches`` count launches,
-``quantize_launches_vec`` and ``quantize_launches_scalar`` the quantize's by
-branch.
+CPU.
 """
 from __future__ import annotations
 
@@ -53,13 +51,6 @@ from repro_torch.kernels.rowplan import Plan, row_plan
 __all__ = ["leaf_rows", "quantize_int8_np", "dequantize_int8_np", "quantize_leaf",
            "dequantize_leaf", "quantize_plan", "quantize_int8_cuda", "dequantize_int8_cuda",
            "quantize_int8_plain", "dequantize_int8_plain"]
-
-#: kernel launches so far (reset by ``ops.reset_launch_counts``)
-quantize_launches = 0
-dequantize_launches = 0
-#: quantize launches by branch: rows in 16-byte vectors, or the scalar loop
-quantize_launches_vec = 0
-quantize_launches_scalar = 0
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _QUANT_ARGTYPES = [_P, _P, _P, _I, _L, _I, _L, _L, _I, _I, _I, _P]
@@ -132,7 +123,6 @@ def quantize_plan(x) -> Plan:
 def quantize_int8_cuda(x):
     """x: (N, D) f32 or bf16 on the card, unit last stride -> (q (N, D)
     int8, scale (N, 1) f32)."""
-    global quantize_launches, quantize_launches_vec, quantize_launches_scalar
     _build.require_cuda("quantize_int8", x)
     if x.ndim != 2:
         raise ValueError(f"quantize_int8: x must be (N, D), got {tuple(x.shape)}")
@@ -141,24 +131,16 @@ def quantize_int8_cuda(x):
     q = torch.empty((N, D), dtype=torch.int8, device=x.device)
     scale = torch.empty((N, 1), dtype=torch.float32, device=x.device)
     plan = quantize_plan(x)
-    fn = _build.function("avec_quantize_int8", _QUANT_ARGTYPES)
-    rc = fn(x.data_ptr(), q.data_ptr(), scale.data_ptr(), _build.dtype_code(x),
-            N, D, x.stride(0), q.stride(0), plan.per, plan.tpr, plan.rpb,
-            _build.current_stream(x))
-    _build.check(rc, "quantize_int8")
-    n = _build.launched()
-    quantize_launches += n
-    if plan.per:
-        quantize_launches_vec += n
-    else:
-        quantize_launches_scalar += n
+    _build.launch("avec_quantize_int8", _QUANT_ARGTYPES, (
+        x.data_ptr(), q.data_ptr(), scale.data_ptr(), _build.dtype_code(x), N, D, x.stride(0),
+        q.stride(0), plan.per, plan.tpr, plan.rpb, _build.current_stream(x)),
+        "quantize_int8", "quantize_int8_vec" if plan.per else "quantize_int8_scalar")
     return q, scale
 
 
 def dequantize_int8_cuda(q, scale, dtype=torch.float32):
     """q: (N, D) int8, scale: (N, 1) f32 on the card -> (N, D) ``dtype``
     (float32 or bfloat16), the fp32 product rounded once."""
-    global dequantize_launches
     _build.require_cuda("dequantize_int8", q, scale)
     N, D = q.shape
     if q.dtype != torch.int8 or scale.dtype != torch.float32 or scale.numel() != N:
@@ -167,9 +149,7 @@ def dequantize_int8_cuda(q, scale, dtype=torch.float32):
     q = _build.unit_last(q)
     s = scale.reshape(N).contiguous()
     out = torch.empty((N, D), dtype=dtype, device=q.device)
-    fn = _build.function("avec_dequantize_int8", _DEQUANT_ARGTYPES)
-    rc = fn(q.data_ptr(), s.data_ptr(), out.data_ptr(), _build.dtype_code(out),
-            N, D, q.stride(0), out.stride(0), _build.current_stream(q))
-    _build.check(rc, "dequantize_int8")
-    dequantize_launches += _build.launched()
+    _build.launch("avec_dequantize_int8", _DEQUANT_ARGTYPES, (
+        q.data_ptr(), s.data_ptr(), out.data_ptr(), _build.dtype_code(out), N, D, q.stride(0),
+        out.stride(0), _build.current_stream(q)), "dequantize_int8")
     return out

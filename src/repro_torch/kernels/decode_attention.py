@@ -17,16 +17,14 @@ that starts past ``kv_len`` reads nothing.  Partials (m, l, acc) go to fp32
 scratch, and the last block of each (b, KV head) -- found by an integer
 counter -- merges them in split order: no float atomics, so two calls give
 bit-identical output.  The scratch and the counters are the device's pool
-(``_build.scratch``), shared with ``mamba_step``: calls on one device must
-run on one stream, one after another, as the model's do.  Head dims 16, 64 and 128; G up to 64; q
+(``_build.scratch``).  Head dims 16, 64 and 128; G up to 64; q
 and the cache each float32 or bfloat16 (the library path gives both one
 dtype).
 
 ``decode_attention_cuda`` launches the kernel (or raises);
 :func:`decode_attention_plain` (from ``kernels/ref.py``) is the plain version
-that ``ops.decode_attention`` takes for tensors on the CPU.  ``launches``
-counts calls of the op (one kernel launch each), so a decode step counts one
-per layer.
+that ``ops.decode_attention`` takes for tensors on the CPU.  A call is one
+kernel launch, so a decode step counts one per layer.
 """
 from __future__ import annotations
 
@@ -37,10 +35,8 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import decode_attention as decode_attention_plain
 
-__all__ = ["decode_attention_cuda", "decode_attention_plain", "launches", "split_plan"]
+__all__ = ["decode_attention_cuda", "decode_attention_plain", "split_plan"]
 
-#: calls launched so far (reset by ``ops.reset_launch_counts``)
-launches = 0
 HEAD_DIMS = (16, 64, 128)
 MAX_GROUP = 64
 SPLIT_UNIT = 32          # keys per tile in the kernel: splits are multiples of it
@@ -71,7 +67,6 @@ def decode_attention_cuda(q, k, v, kv_len, *, scale: float | None = None):
 
 
 def _launch(q, k, v, kv_len, out, stream, scale=None):
-    global launches
     B, K, G, D = q.shape
     S = k.shape[2]
     if k.shape != v.shape or tuple(k.shape[:2]) != (B, K) or k.shape[3] != D:
@@ -90,11 +85,10 @@ def _launch(q, k, v, kv_len, out, stream, scale=None):
     k, v = _build.aligned_rows(k), _build.aligned_rows(v)
     split_len, n_split = split_plan(S, B, K, _build.sm_count(q.device))
     counter, part = _build.scratch(q.device, B * K, B * K * n_split * G * (D + 2))
-    fn = _build.function("avec_decode_attention", _ARGTYPES)
-    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(), out.data_ptr(),
-            part.data_ptr(), counter.data_ptr(), _build.dtype_code(q), _build.dtype_code(k),
-            B, K, G, S, D, split_len, n_split, float(D ** -0.5 if scale is None else scale),
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3], stream)
-    _build.check(rc, "decode_attention")
-    launches += _build.launched()
+    _build.launch("avec_decode_attention", _ARGTYPES, (
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(), out.data_ptr(),
+        part.data_ptr(), counter.data_ptr(), _build.dtype_code(q), _build.dtype_code(k),
+        B, K, G, S, D, split_len, n_split, float(D ** -0.5 if scale is None else scale),
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3], stream),
+        "decode_attention")
     return out

@@ -21,8 +21,7 @@ lengths) and read every tensor through its strides, so the model's
 
 ``flash_attention_cuda`` launches the kernel (or raises);
 :func:`flash_attention_plain` (from ``kernels/ref.py``) is the plain version
-that ``ops.flash_attention`` takes for tensors on the CPU.  ``launches``
-counts kernel launches.
+that ``ops.flash_attention`` takes for tensors on the CPU.
 """
 from __future__ import annotations
 
@@ -33,10 +32,8 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import flash_attention as flash_attention_plain
 
-__all__ = ["flash_attention_cuda", "flash_attention_plain", "launches"]
+__all__ = ["flash_attention_cuda", "flash_attention_plain"]
 
-#: kernel launches so far (reset by ``ops.reset_launch_counts``)
-launches = 0
 HEAD_DIMS = (16, 64, 128)
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -62,7 +59,6 @@ def kernel_inputs(q, k, v):
 
 
 def _launch(q, k, v, causal, out, stream, scale=None):
-    global launches
     B, H, Sq, D = q.shape
     K, Sk = k.shape[1], k.shape[2]
     if k.shape != v.shape or k.shape[0] != B or k.shape[3] != D or H % K:
@@ -77,12 +73,11 @@ def _launch(q, k, v, causal, out, stream, scale=None):
     q, k, v = kernel_inputs(q, k, v)
     dst = out if q.dtype != torch.bfloat16 or _build.rows_aligned(out) else torch.empty_like(
         out, memory_format=torch.contiguous_format)
-    fn = _build.function("avec_flash_attention", _ARGTYPES)
-    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dst.data_ptr(), _build.dtype_code(q),
-            B, H, K, Sq, Sk, D, int(bool(causal)), float(D ** -0.5 if scale is None else scale),
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *dst.stride()[:3], stream)
-    _build.check(rc, "flash_attention")
-    launches += _build.launched()
+    _build.launch("avec_flash_attention", _ARGTYPES, (
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), dst.data_ptr(), _build.dtype_code(q),
+        B, H, K, Sq, Sk, D, int(bool(causal)), float(D ** -0.5 if scale is None else scale),
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *dst.stride()[:3], stream),
+        "flash_attention")
     if dst is not out:
         out.copy_(dst)
     return out

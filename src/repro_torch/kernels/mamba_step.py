@@ -16,13 +16,11 @@ the SM count, so that a model with few heads (mamba2-130m's 24) still spreads
 over the card.  The norm spans all heads: the row's last block (an integer
 counter, reset by that block) sums the blocks' partial sums in a fixed order
 and writes the row, so two calls give bit-identical output.  The scratch and
-the counters are the device's pool (``_build.scratch``), shared with
-``decode_attention``: calls on one device must run on one stream, one after
-another, as the model's do.
+the counters are the device's pool (``_build.scratch``).
 
 ``mamba_step_cuda`` launches the kernel (or raises); :func:`mamba_step_plain`
 (from ``kernels/ref.py``) is the plain version that ``ops.mamba_step`` takes
-for tensors on the CPU.  ``launches`` counts calls (one kernel launch each).
+for tensors on the CPU.  A call is one kernel launch.
 """
 from __future__ import annotations
 
@@ -33,10 +31,8 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import mamba_step as mamba_step_plain
 
-__all__ = ["mamba_step_cuda", "mamba_step_plain", "mamba_step_plan", "check_args", "launches"]
+__all__ = ["mamba_step_cuda", "mamba_step_plain", "mamba_step_plan", "check_args"]
 
-#: calls launched so far (reset by ``ops.reset_launch_counts``)
-launches = 0
 HEAD_DIMS = (16, 64, 128)
 MAX_N = 128
 MAX_CK = 4
@@ -72,7 +68,6 @@ def mamba_step_cuda(u, z, x, Bm, Cm, p: dict, conv, ssm, *, eps: float):
     mamba_specs``: wdt and the conv weights and biases in one dtype, the
     rest fp32); conv (B,ck-1,di+2GN) f32 or bf16 and ssm (B,H,P,N) fp32,
     updated in place -> (B,1,di) in z's dtype."""
-    global launches
     w = [p[k] for k in _PARAMS]
     _build.require_cuda("mamba_step", u, z, x, Bm, Cm, conv, ssm, *w)
     B, H, P, N, G, ck, dm = check_args(u, z, x, Bm, Cm, p, conv, ssm)
@@ -83,16 +78,14 @@ def mamba_step_cuda(u, z, x, Bm, Cm, p: dict, conv, ssm, *, eps: float):
     w = [t.contiguous() for t in w]
     S = mamba_step_plan(B, H, P, N, _build.sm_count(u.device))
     counter, scratch = _build.scratch(u.device, B, B * H * (P + S))
-    fn = _build.function("avec_mamba_step", _ARGTYPES)
-    rc = fn(u.data_ptr(), z.data_ptr(), x.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
-            *(t.data_ptr() for t in w), conv.data_ptr(), ssm.data_ptr(), out.data_ptr(),
-            scratch.data_ptr(), scratch.data_ptr() + 4 * B * H * P, counter.data_ptr(),
-            _build.dtype_code(z), _build.dtype_code(w[0]), _build.dtype_code(conv), B, H, P,
-            N, G, ck, dm, S, u.stride(0), z.stride(0), x.stride(0), Bm.stride(0),
-            Cm.stride(0), conv.stride(0), ssm.stride(0), out.stride(0), float(eps),
-            _build.current_stream(u))
-    _build.check(rc, "mamba_step")
-    launches += _build.launched()
+    _build.launch("avec_mamba_step", _ARGTYPES, (
+        u.data_ptr(), z.data_ptr(), x.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+        *(t.data_ptr() for t in w), conv.data_ptr(), ssm.data_ptr(), out.data_ptr(),
+        scratch.data_ptr(), scratch.data_ptr() + 4 * B * H * P, counter.data_ptr(),
+        _build.dtype_code(z), _build.dtype_code(w[0]), _build.dtype_code(conv), B, H, P, N, G,
+        ck, dm, S, u.stride(0), z.stride(0), x.stride(0), Bm.stride(0), Cm.stride(0),
+        conv.stride(0), ssm.stride(0), out.stride(0), float(eps), _build.current_stream(u)),
+        "mamba_step")
     return out
 
 

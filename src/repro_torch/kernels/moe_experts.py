@@ -17,7 +17,8 @@ gate's SiLU times the up in between, all in bf16 with fp32 accumulation.
 
 ``moe_experts_cuda`` launches them (or raises); :func:`moe_experts_plain`
 (from ``kernels/ref.py``) is the plain version that ``ops.moe_experts``
-takes for tensors on the CPU.  ``launches`` counts calls of the op.
+takes for tensors on the CPU.  A call counts as one ``moe_experts`` launch
+(``_build.count``).
 """
 from __future__ import annotations
 
@@ -27,17 +28,13 @@ import torch.nn.functional as F
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import moe_experts as moe_experts_plain
 
-__all__ = ["moe_experts_cuda", "moe_experts_plain", "launches"]
-
-#: calls launched so far (reset by ``ops.reset_launch_counts``)
-launches = 0
+__all__ = ["moe_experts_cuda", "moe_experts_plain"]
 
 
 def moe_experts_cuda(x, w_gate, w_up, w_down, offs):
     """x: (R, d) bf16 rows grouped by expert; w_gate, w_up: (E, d, f) and
     w_down: (E, f, d) bf16; offs: (E,) int32, expert e's rows ending at
     ``offs[e]`` and ``offs[E-1] == R``, on the card -> (R, d) bf16."""
-    global launches
     _build.require_cuda("moe_experts", x, w_gate, w_up, w_down, offs)
     E, d, f = w_gate.shape
     if (x.ndim != 2 or x.shape[1] != d or tuple(w_up.shape) != (E, d, f)
@@ -52,5 +49,5 @@ def moe_experts_cuda(x, w_gate, w_up, w_down, offs):
     x = _build.aligned_rows(x)
     h = F.silu(torch._grouped_mm(x, w_gate, offs=offs)) * torch._grouped_mm(x, w_up, offs=offs)
     out = torch._grouped_mm(h, w_down, offs=offs)
-    launches += _build.launched()
+    _build.count("moe_experts")
     return out

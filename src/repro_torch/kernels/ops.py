@@ -9,8 +9,8 @@ its plain version on the card force the plain one with ``impl="ref"`` or
 :func:`force_impl`; the main path never does.  A DTensor (the dry-run's) runs
 attention shard by shard (``distributed/dtensor.py``), each shard through
 this same dispatch.  Each kernel module holds the
-CUDA wrapper (``*_cuda``, which counts its launches) and the plain version
-(``*_plain``, from ``kernels/ref.py``).  Where autograd records the call
+CUDA wrapper (``*_cuda``, which counts its launches through ``_build``) and
+the plain version (``*_plain``, from ``kernels/ref.py``).  Where autograd records the call
 (an input requires grad), ``rmsnorm``, ``flash_attention`` and ``ssd_scan``
 on the card go through :class:`~repro_torch.kernels.autograd.KernelFunction`:
 forward through the kernel, backward through the recomputed plain version.
@@ -26,6 +26,7 @@ from functools import partial, wraps
 import torch
 
 from repro_torch.distributed.dtensor import attention_per_shard, is_dtensor
+from repro_torch.kernels import _build
 from repro_torch.kernels import comm_quant as _cq
 from repro_torch.kernels import decode_attention as _dec
 from repro_torch.kernels import flash_attention as _fa
@@ -36,18 +37,12 @@ from repro_torch.kernels import ssd_scan as _ssd
 from repro_torch.kernels.autograd import KernelFunction, needs_grad
 from repro_torch.obs import trace as _trace
 
-# kernel name -> (module, the module's launch counter)
-_KERNELS = {"rmsnorm": (_rms, "launches"), "flash_attention": (_fa, "launches"),
-            "decode_attention": (_dec, "launches"), "ssd_scan": (_ssd, "launches"),
-            "moe_experts": (_moe, "launches"), "mamba_step": (_mstep, "launches"),
-            "quantize_int8": (_cq, "quantize_launches"),
-            "dequantize_int8": (_cq, "dequantize_launches")}
-# branch of a kernel -> (module, its launch counter): the SSD scan's calls
-# by the kernel they took (``ssd_scan.tensor_core_branch``), the int8
-# quantize's by its path (``comm_quant.quantize_plan``)
-_BRANCHES = {"ssd_scan_tc": (_ssd, "launches_tc"), "ssd_scan_simt": (_ssd, "launches_simt"),
-             "quantize_int8_vec": (_cq, "quantize_launches_vec"),
-             "quantize_int8_scalar": (_cq, "quantize_launches_scalar")}
+#: what :func:`launch_counts` reports: each kernel, then the branches of the
+#: SSD scan (``ssd_scan.tensor_core_branch``) and of the int8 quantize
+#: (``comm_quant.quantize_plan``)
+_COUNTED = ("rmsnorm", "flash_attention", "decode_attention", "ssd_scan", "moe_experts",
+           "mamba_step", "quantize_int8", "dequantize_int8", "ssd_scan_tc", "ssd_scan_simt",
+           "quantize_int8_vec", "quantize_int8_scalar")
 _forced: str | None = None
 
 
@@ -76,22 +71,17 @@ def _use_kernel(x, impl: str | None) -> bool:
 
 
 def launch_counts() -> dict[str, int]:
-    """Each kernel's launches by its wrapper, outside CUDA graph captures
-    (``_build.launched``): a replayed graph's kernels are not counted."""
-    return {name: getattr(mod, attr) for name, (mod, attr) in _KERNELS.items()}
-
-
-def branch_counts() -> dict[str, int]:
-    """Calls per branch of the kernels that have two: ``ssd_scan_tc`` (the
-    tensor-core kernels) and ``ssd_scan_simt`` (the CUDA-core kernel);
-    ``quantize_int8_vec`` (rows in 16-byte vectors) and
-    ``quantize_int8_scalar`` (the scalar loop)."""
-    return {name: getattr(mod, attr) for name, (mod, attr) in _BRANCHES.items()}
+    """Each kernel's launches by its wrapper, and the calls per branch of
+    the kernels that have two: ``ssd_scan_tc`` (the tensor-core kernels)
+    and ``ssd_scan_simt`` (the CUDA-core kernel); ``quantize_int8_vec``
+    (rows in 16-byte vectors) and ``quantize_int8_scalar`` (the scalar
+    loop).  Launches inside a CUDA graph capture are not counted, nor are a
+    replayed graph's kernels (``_build.count``)."""
+    return {name: _build.launches[name] for name in _COUNTED}
 
 
 def reset_launch_counts() -> None:
-    for mod, attr in (*_KERNELS.values(), *_BRANCHES.values()):
-        setattr(mod, attr, 0)
+    _build.launches.clear()
 
 
 def _counted(op):

@@ -13,7 +13,7 @@ is not a multiple of the vector, takes a scalar loop in the same kernel.
 
 ``rmsnorm_cuda`` launches the kernel (or raises); :func:`rmsnorm_plain`
 (from ``kernels/ref.py``) is the plain version that ``ops.rmsnorm`` takes
-for a tensor on the CPU.  ``launches`` counts kernel launches.
+for a tensor on the CPU.
 """
 from __future__ import annotations
 
@@ -25,10 +25,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import rmsnorm as rmsnorm_plain
 from repro_torch.kernels.rowplan import Plan, row_plan
 
-__all__ = ["rmsnorm_cuda", "rmsnorm_plain", "rmsnorm_plan", "Plan", "launches"]
-
-#: kernel launches so far (reset by ``ops.reset_launch_counts``)
-launches = 0
+__all__ = ["rmsnorm_cuda", "rmsnorm_plain", "rmsnorm_plan", "Plan"]
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = [_P, _P, _P, _I, _I, _L, _I, _L, _L, ctypes.c_float, _I, _I, _I, _P]
@@ -46,7 +43,6 @@ def rmsnorm_cuda(x, scale, *, eps: float = 1e-6):
 
 
 def _launch(x, scale, eps, stream):
-    global launches
     D = x.shape[-1]
     if tuple(scale.shape) != (D,):
         raise ValueError(f"rmsnorm: scale shape {tuple(scale.shape)} != ({D},)")
@@ -56,10 +52,8 @@ def _launch(x, scale, eps, stream):
     y = torch.empty(x2.shape, dtype=x.dtype, device=x.device)
     plan = rmsnorm_plan(D, x.element_size(),
                         _build.rows_aligned(x2) and s.data_ptr() % 16 == 0)
-    fn = _build.function("avec_rmsnorm", _ARGTYPES)
-    rc = fn(x2.data_ptr(), s.data_ptr(), y.data_ptr(), _build.dtype_code(x),
-            _build.dtype_code(s), x2.shape[0], D, x2.stride(0), y.stride(0), float(eps),
-            plan.per, plan.tpr, plan.rpb, stream)
-    _build.check(rc, "rmsnorm")
-    launches += _build.launched()
+    _build.launch("avec_rmsnorm", _ARGTYPES, (
+        x2.data_ptr(), s.data_ptr(), y.data_ptr(), _build.dtype_code(x), _build.dtype_code(s),
+        x2.shape[0], D, x2.stride(0), y.stride(0), float(eps), plan.per, plan.tpr, plan.rpb,
+        stream), "rmsnorm")
     return y.reshape(x.shape)

@@ -18,9 +18,8 @@ host by :func:`tensor_core_branch` from the dtype and the shape:
   independent), so jamba-1.5-large's head dim 128 runs as two slices
   (:func:`tc_slices`), each recomputing its C B^T.  Two launches;
   fp32 scratch for the chunk states, cum and dt, bf16 scratch for the
-  entering states and int32 counters, kept per device and reused from call
-  to call (calls on one device must therefore run on one stream, one after
-  another, as the model's do);
+  entering states and int32 counters, all from the device's pool
+  (``_build.scratch``, laid out by :func:`tc_scratch`);
 * the CUDA-core branch (fp32, where TF32 would break the 2e-4 hold, and
   every other shape): one block per (batch row, head, 32-wide slice of P),
   the chunks a loop inside the block with the slice's state in shared
@@ -35,8 +34,9 @@ kernels.
 
 ``ssd_scan_cuda`` launches a kernel (or raises); :func:`ssd_scan_plain`
 (from ``kernels/ref.py``, the chunked algorithm) is the plain version that
-``ops.ssd_scan`` takes for a tensor on the CPU.  ``launches`` counts calls;
-``launches_tc`` and ``launches_simt`` count them by branch.
+``ops.ssd_scan`` takes for a tensor on the CPU.  A call counts as
+``ssd_scan`` and as its branch, ``ssd_scan_tc`` or ``ssd_scan_simt``
+(``_build.launch``).
 """
 from __future__ import annotations
 
@@ -47,15 +47,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import ssd_scan as ssd_scan_plain
 
-__all__ = ["ssd_scan_cuda", "ssd_scan_plain", "tensor_core_branch", "tc_slices", "launches",
-           "launches_tc", "launches_simt"]
-
-#: calls launched so far, either branch (reset by ``ops.reset_launch_counts``)
-launches = 0
-#: calls that took the tensor-core branch (two kernel launches each)
-launches_tc = 0
-#: calls that took the CUDA-core branch (one kernel launch each)
-launches_simt = 0
+__all__ = ["ssd_scan_cuda", "ssd_scan_plain", "tensor_core_branch", "tc_slices", "tc_scratch"]
 
 TC_TILE = 64                       # positions per tile of the tensor-core kernels
 TC_MAX_P, TC_MAX_N, TC_MAX_L = 128, 128, 2048
@@ -64,7 +56,6 @@ TC_SLICE_P = 64                    # columns of P per block of the tensor-core k
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = [_P] * 7 + [_I] * 4 + [_L] + [_I] * 5 + [_L] * 15 + [_P]
 _TC_ARGTYPES = [_P] * 11 + [_I, _L] + [_I] * 5 + [_L] * 15 + [_P]
-_device: dict = {}      # device index -> [counters, fp32 scratch, bf16 scratch]
 
 
 def tensor_core_branch(dtype, P: int, N: int, L: int) -> bool:
@@ -82,6 +73,18 @@ def tc_slices(P: int) -> int:
     return -(-P // TC_SLICE_P)
 
 
+def tc_scratch(B: int, H: int, P: int, N: int, nc: int, L: int) -> tuple[int, int, int, int]:
+    """(int32 counters, fp32 floats, byte offsets of the bf16 hi and lo
+    regions) the tensor-core kernels take from the device's pool for B rows
+    of H heads in nc chunks of L: the chunk states, cum, dt and the chunk
+    decays in fp32 from the start, then the entering states' hi and lo
+    halves in bf16, each region starting on 16 bytes."""
+    ns, n_states = tc_slices(P), B * H * nc * P * N
+    hi = -(-4 * (n_states + B * H * nc * (2 * L + ns)) // 16) * 16
+    lo = hi + -(-2 * n_states // 16) * 16
+    return B * H * ns, -(-(lo + 2 * n_states) // 4), hi, lo
+
+
 def ssd_scan_cuda(x, dt, A, Bm, Cm, *, chunk: int):
     """x: (B,S,H,P) f32/bf16; dt: (B,S,H) f32 post-softplus; A: (H,);
     Bm, Cm: (B,S,G,N) in x's type; H % G == 0; chunks of ``chunk``.
@@ -91,7 +94,6 @@ def ssd_scan_cuda(x, dt, A, Bm, Cm, *, chunk: int):
 
 
 def _launch(x, dt, A, Bm, Cm, chunk, stream):
-    global launches, launches_tc, launches_simt
     B, S, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
     if (tuple(dt.shape) != (B, S, H) or tuple(A.shape) != (H,)
@@ -106,47 +108,21 @@ def _launch(x, dt, A, Bm, Cm, chunk, stream):
         if dt.dtype != torch.float32:
             raise TypeError(f"ssd_scan: dt must be float32, not {dt.dtype}")
         x, Bm, Cm = (_build.aligned_rows(t) for t in (x, Bm, Cm))
-        nc, ns = -(-S // chunk), tc_slices(P)
-        n_states = B * H * nc * P * N
-        counter, f32, b16 = _buffers(x.device, B * H * ns,
-                                     n_states + B * H * nc * (2 * chunk + ns), 2 * n_states)
-        fn = _build.function("avec_ssd_scan_tc", _TC_ARGTYPES)
-        rc = fn(x.data_ptr(), dt.data_ptr(), A32.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
-                y.data_ptr(), state.data_ptr(), f32.data_ptr(), b16.data_ptr(),
-                b16.data_ptr() + 2 * n_states, counter.data_ptr(), B, S, H, P, G, N, chunk,
-                *x.stride()[:3], *dt.stride(), *Bm.stride()[:3], *Cm.stride()[:3],
-                *y.stride()[:3], stream)
-        _build.check(rc, "ssd_scan (tensor cores)")
-        launches_tc += _build.launched()
+        n_ints, n_floats, hi, lo = tc_scratch(B, H, P, N, -(-S // chunk), chunk)
+        counter, f32 = _build.scratch(x.device, n_ints, n_floats)
+        _build.launch("avec_ssd_scan_tc", _TC_ARGTYPES, (
+            x.data_ptr(), dt.data_ptr(), A32.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+            y.data_ptr(), state.data_ptr(), f32.data_ptr(), f32.data_ptr() + hi,
+            f32.data_ptr() + lo, counter.data_ptr(), B, S, H, P, G, N, chunk,
+            *x.stride()[:3], *dt.stride(), *Bm.stride()[:3], *Cm.stride()[:3],
+            *y.stride()[:3], stream), "ssd_scan", "ssd_scan_tc")
     else:
         x, Bm, Cm = (_build.unit_last(t) for t in (x, Bm, Cm))
-        fn = _build.function("avec_ssd_scan", _ARGTYPES)
-        rc = fn(x.data_ptr(), dt.data_ptr(), A32.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
-                y.data_ptr(), state.data_ptr(),
-                _build.dtype_code(x), _build.dtype_code(Bm) if Bm.dtype == Cm.dtype else -1,
-                _build.dtype_code(dt), B, S, H, P, G, N, chunk,
-                *x.stride()[:3], *dt.stride(), *Bm.stride()[:3], *Cm.stride()[:3],
-                *y.stride()[:3], stream)
-        _build.check(rc, "ssd_scan (CUDA cores)")
-        launches_simt += _build.launched()
-    launches += _build.launched()
+        _build.launch("avec_ssd_scan", _ARGTYPES, (
+            x.data_ptr(), dt.data_ptr(), A32.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+            y.data_ptr(), state.data_ptr(),
+            _build.dtype_code(x), _build.dtype_code(Bm) if Bm.dtype == Cm.dtype else -1,
+            _build.dtype_code(dt), B, S, H, P, G, N, chunk,
+            *x.stride()[:3], *dt.stride(), *Bm.stride()[:3], *Cm.stride()[:3],
+            *y.stride()[:3], stream), "ssd_scan", "ssd_scan_simt")
     return y, state
-
-
-def _buffers(dev, n_counters: int, n_f32: int, n_bf16: int):
-    """(counters, fp32 scratch, bf16 scratch) of ``dev``, grown to at least
-    the sizes asked for; the counters are zero between calls (the kernel
-    resets them)."""
-    idx = dev.index if dev.index is not None else torch.cuda.current_device()
-    st = _device.get(idx)
-    if st is None:
-        st = _device[idx] = [torch.zeros(0, dtype=torch.int32, device=dev),
-                             torch.empty(0, dtype=torch.float32, device=dev),
-                             torch.empty(0, dtype=torch.bfloat16, device=dev)]
-    if st[0].numel() < n_counters:
-        st[0] = torch.zeros(max(n_counters, 256), dtype=torch.int32, device=dev)
-    if st[1].numel() < n_f32:
-        st[1] = torch.empty(n_f32, dtype=torch.float32, device=dev)
-    if st[2].numel() < n_bf16:
-        st[2] = torch.empty(n_bf16, dtype=torch.bfloat16, device=dev)
-    return st

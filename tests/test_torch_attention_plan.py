@@ -14,8 +14,8 @@ What decides their work is host Python, checked here:
   ``tests/test_kernels.py``'s tolerance);
 - the flash wrapper's 16-byte row rule: which strided inputs the kernel
   reads in place and which it gets as a copy;
-- the decode kernel's scratch only grows, and an outgrown buffer stays
-  alive for a CUDA graph that still addresses it.
+- the scratch pool of the decode kernels and the SSD scan only grows, and
+  an outgrown buffer stays alive for a CUDA graph that still addresses it.
 """
 import inspect
 
@@ -28,6 +28,7 @@ from repro.kernels import ref as jref
 from repro_torch.kernels import _build
 from repro_torch.kernels import decode_attention as dk
 from repro_torch.kernels import flash_attention as fk
+from repro_torch.kernels import ssd_scan as sk
 from repro_torch.kernels.ref import NEG_INF
 
 H100_SMS = 132
@@ -173,15 +174,38 @@ def test_flash_kernel_inputs_by_dtype():
     assert got[1] is kb and got[2] is vb
 
 
-def test_decode_scratch_grows_by_doubling_and_keeps_what_it_outgrew():
-    """The pool the decode kernels share (``_build.scratch``)."""
+@pytest.mark.parametrize("asks, sizes", [
+    # decode_attention's and mamba_step's (int32 counters, fp32 floats)
+    ([(8, 1000), (8, 1000), (8, (1 << 16) + 1), (300, 3 << 17)],
+     [(256, 1 << 16), (256, 1 << 16), (256, 1 << 17), (512, 3 << 17)]),
+    # the SSD scan's tensor-core branch, (B, H, P, N, chunks, L) through
+    # ssd_scan.tc_scratch: three heads of 16 in one chunk of 64 (its fp32
+    # part ends off 16 bytes), mamba2-130m's prefill at B 2, S 1024, head dim
+    # 128 in two slices, S 1280
+    ([(1, 3, 16, 16, 1, 64), (2, 24, 64, 128, 4, 256), (2, 4, 128, 64, 3, 128),
+      (2, 24, 64, 128, 5, 256)],
+     [(256, 1 << 16), (256, 3244224), (256, 3244224), (256, 2 * 3244224)]),
+], ids=["decode", "ssd_scan"])
+def test_decode_scratch_grows_by_doubling_and_keeps_what_it_outgrew(asks, sizes):
+    """The pool the decode kernels and the SSD scan share
+    (``_build.scratch``): a buffer that holds the ask is reused, a growth
+    at least doubles, and an outgrown buffer is kept for a CUDA graph that
+    still addresses it; the scan's bf16 regions start on 16 bytes past its
+    fp32 part and end inside the floats it asks for."""
     state = [132, torch.zeros(0, dtype=torch.int32), torch.empty(0), []]
-    counter, part = _build.grow_scratch(state, 8, 1000)
-    assert (counter.numel(), part.numel()) == (256, 1 << 16)
-    assert _build.grow_scratch(state, 8, 1000)[1] is part   # enough: reused
-    first = part
-    _, part = _build.grow_scratch(state, 8, (1 << 16) + 1)
-    assert part.numel() == 1 << 17 and any(t is first for t in state[3])
-    counter2, part2 = _build.grow_scratch(state, 300, 3 << 17)
-    assert counter2.numel() == 512 and part2.numel() == 3 << 17
-    assert any(t is counter for t in state[3]) and any(t is part for t in state[3])
+    for ask, want in zip(asks, sizes):
+        if len(ask) == 6:
+            B, H, P, N, nc, L = ask
+            n_ints, n_floats, hi, lo = sk.tc_scratch(*ask)
+            n_states = B * H * nc * P * N
+            assert n_ints == B * H * sk.tc_slices(P) and hi % 16 == 0 and lo % 16 == 0
+            assert hi >= 4 * (n_states + B * H * nc * (2 * L + sk.tc_slices(P)))
+            assert lo >= hi + 2 * n_states and 4 * n_floats >= lo + 2 * n_states
+        else:
+            n_ints, n_floats = ask
+        before = state[1], state[2]
+        counter, part = _build.grow_scratch(state, n_ints, n_floats)
+        assert (counter.numel(), part.numel()) == want
+        for old, new, n in zip(before, (counter, part), (n_ints, n_floats)):
+            assert (new is old) == (old.numel() >= n)
+            assert new is old or any(t is old for t in state[3])

@@ -184,10 +184,6 @@ def _device_launches(fn) -> dict:
             "grouped_gemm": sum(GROUPED_GEMM in n for n in names)}
 
 
-def _counters() -> dict:
-    return {**ops.launch_counts(), **ops.branch_counts()}
-
-
 @pytest.mark.card
 def test_replays_launch_the_kernels_of_eager_steps(model):
     """The device runs a replay's kernels as it runs an eager step's, and no
@@ -209,7 +205,7 @@ def test_replays_launch_the_kernels_of_eager_steps(model):
                 M.decode_step(cfg, params, cache, {"tokens": prompt[:, :1], "pos": 19 + j})
         ops.reset_launch_counts()
         eager = _device_launches(eager_steps)
-    counted = _counters()
+    counted = ops.launch_counts()
     assert eager["rmsnorm"] and {k: eager[k] for k in STEP_KERNELS} == {
         k: counted[k] for k in STEP_KERNELS}
     n_attn = sum(cfg.layer_kind(i) == "attn" for i in range(cfg.num_layers))
@@ -221,7 +217,7 @@ def test_replays_launch_the_kernels_of_eager_steps(model):
     ops.reset_launch_counts()
     logits, replayed = _decode(lib, params, state, logits)         # the capture
     assert not replayed
-    assert _counters() == {k: n // steps for k, n in counted.items()}
+    assert ops.launch_counts() == {k: n // steps for k, n in counted.items()}
     ops.reset_launch_counts()
 
     def replays():
@@ -230,4 +226,4 @@ def test_replays_launch_the_kernels_of_eager_steps(model):
             logits, replayed = _decode(lib, params, state, logits)
             assert replayed
     assert _device_launches(replays) == eager
-    assert not any(_counters().values())
+    assert not any(ops.launch_counts().values())

