@@ -820,6 +820,72 @@ def mamba_step_times(gen, dev) -> dict:
     return {"mamba_step": dict(rows[0], at_other_shapes=rows[1:])}
 
 
+def moe_route_times(gen, dev) -> dict:
+    """``ops.moe_route`` and ``ops.moe_combine`` at granite-4.0-h-small's
+    widths (``MOE_EXPERTS``; B 1, and B 32 beside it) against the plain chain
+    they replaced (``kernels/ref.py``, some twenty kernels between them) on
+    the same inputs: ``ends`` and ``order`` equal and ``rows`` bit-equal
+    where every token's k-th and (k+1)-th probabilities lie more than 1e-5
+    of the largest apart, ``w`` and the combine within one bf16 ulp; each
+    one's summed kernel time (``time_ms``) and its time replayed from a CUDA
+    graph (``graph_ms``: the gaps between its kernels included), and the
+    bound: the fp32 router, x, the experts' rows, w, order and the shared
+    expert's output read once, rows, ends, w, order and y written once."""
+    from functools import partial
+
+    from repro_torch.kernels import ops
+
+    E, k, d, _ = MOE_EXPERTS
+    bf16 = torch.bfloat16
+    rows = {"moe_route": [], "moe_combine": []}
+    for T in (1, 32):
+        x = torch.randn(T, d, generator=gen, device=dev).to(bf16)
+        router = torch.randn(d, E, generator=gen, device=dev) * d ** -0.5
+        out = torch.randn(T * k, d, generator=gen, device=dev).to(bf16)
+        shared = torch.randn(T, d, generator=gen, device=dev).to(bf16)
+        want = ops.moe_route(x, router, k, impl="ref")
+        got = ops.moe_route(x, router, k)
+        top = torch.softmax(x.float() @ router, dim=-1).topk(k + 1, dim=-1).values
+        clear = bool(((top[:, k - 1] - top[:, k]) > 1e-5 * top[:, 0]).all())
+        ulp = torch.exp2(torch.floor(torch.log2(want[2].float().abs())) - 7)
+        werr = (got[2].float() - want[2].float()).abs()
+        check(clear and torch.equal(got[1], want[1]) and torch.equal(got[3], want[3])
+              and torch.equal(got[0], want[0]) and bool((werr <= ulp).all()),
+              f"moe_route T {T}: ends, order and rows equal, w within one bf16 ulp "
+              f"(max abs err {werr.max().item():.3e}) against the plain chain")
+        y_want = ops.moe_combine(out, *want[2:], k, shared, impl="ref")
+        routed = ops.moe_combine(out, *want[2:], k, impl="ref")
+        y = ops.moe_combine(out, *want[2:], k, shared)
+        yerr = (y.float() - y_want.float()).abs()
+        bound = torch.exp2(torch.floor(torch.log2(torch.maximum(
+            y_want.float().abs(), routed.float().abs()).clamp_min(2.0 ** -126))) - 7)
+        check(bool((yerr <= bound).all()),
+              f"moe_combine T {T}: within one bf16 ulp of the plain chain (max abs err "
+              f"{yerr.max().item():.3e})")
+        shape = f"T {T} x k {k} of E {E}, d {d}"
+        for name, kernel, plain, nb, flops, err in (
+                ("moe_route", partial(ops.moe_route, x, router, k),
+                 partial(ops.moe_route, x, router, k, impl="ref"),
+                 nbytes(router, x, *got), 2.0 * T * d * E, werr.max().item()),
+                ("moe_combine", partial(ops.moe_combine, out, *got[2:], k, shared),
+                 partial(ops.moe_combine, out, *got[2:], k, shared, impl="ref"),
+                 nbytes(out, *got[2:], shared, y), 2.0 * T * k * d + T * d,
+                 yerr.max().item())):
+            b, by = bound_ms(nb, flops, torch.float32)
+            rows[name].append({"shape": shape, "ms": time_ms(kernel, iters=50),
+                               "graph_ms": graph_ms(kernel), "plain_ms": time_ms(plain, iters=10),
+                               "plain_graph_ms": graph_ms(plain), "library_ms": None,
+                               "bound_ms": b, "bound_by": by, "max_abs_err": err})
+    for name, rs in rows.items():
+        for row in rs:
+            print(f"  {name} [{row['shape']}]: kernel {row['ms']:.5f} ms ({row['graph_ms']:.5f} "
+                  f"in a graph), plain chain {row['plain_ms']:.5f} ms ({row['plain_graph_ms']:.5f}"
+                  f" in a graph), bound {row['bound_ms']:.5f} ms ({row['bound_by']}), max abs "
+                  f"err {row['max_abs_err']:.3e}", flush=True)
+    ops.reset_launch_counts()        # timing launches are not the main path's
+    return {name: dict(rs[0], at_other_shapes=rs[1:]) for name, rs in rows.items()}
+
+
 def ssd_row(gen, dev, shape) -> dict:
     """The scan's kernel, plain and bound times at ``shape`` (B, S, H, P,
     G, N, chunk), bf16, and its wrapper's host time."""
@@ -1391,7 +1457,8 @@ def small_train_check(arch: str, seed: int, dev) -> None:
 
 #: the hand-written kernels of a decode step, by counter key and kernel name
 STEP_KERNELS = {"rmsnorm": "rmsnorm_kernel", "decode_attention": "decode_split_kernel",
-                "mamba_step": "mamba_step_kernel"}
+                "mamba_step": "mamba_step_kernel", "moe_route": "moe_route_kernel",
+                "moe_combine": "moe_combine_kernel"}
 #: idle seconds at each end of a traced window: the profiler keeps only the
 #: kernels that lie wholly inside its window on the host's clock, and the
 #: device's timestamps, mapped onto that clock, may be off by microseconds
@@ -1431,10 +1498,12 @@ def per_call_counts(cfg, step: bool = False) -> dict:
     norm (mamba), and the final norm (none for a layernorm model); per
     mamba layer the SSD scan in a forward, one ``mamba_step`` (the mixer,
     its gated norm included) in a step; the grouped experts per dropless
-    MoE layer of either.  Either holds flash's launches of a forward (per
+    MoE layer of either, and in a step its routing and combine kernels (a
+    score, and a prefill of more than ``moe_route.MAX_ROWS`` / k tokens,
+    take the plain chain).  Either holds flash's launches of a forward (per
     attention and cross-attention layer, and per encoder layer) and decode
     attention's of a step (per attention and cross-attention layer)."""
-    rms = flash = dec = scan = moe = mstep = 0
+    rms = flash = dec = scan = moe = mstep = route = 0
     dropless = cfg.moe is not None and cfg.moe.dropless
     for i in range(cfg.num_layers):
         mamba = cfg.layer_kind(i) == "mamba"
@@ -1446,10 +1515,11 @@ def per_call_counts(cfg, step: bool = False) -> dict:
         scan += mamba and not step
         mstep += mamba and step
         moe += dropless and cfg.layer_has_moe(i)
+        route += dropless and cfg.layer_has_moe(i) and step
     rms = rms + 1 if cfg.norm == "rmsnorm" else 0
     flash += cfg.enc_layers if cfg.family == "encdec" else 0
     return {"rmsnorm": rms, "flash_attention": flash, "decode_attention": dec, "ssd_scan": scan,
-            "moe_experts": moe, "mamba_step": mstep}
+            "moe_experts": moe, "mamba_step": mstep, "moe_route": route, "moe_combine": route}
 
 
 def expected_counts(cfg, seq: int) -> dict:
@@ -1473,6 +1543,8 @@ def expected_counts(cfg, seq: int) -> dict:
             "decode_attention": N_DECODE * step["decode_attention"],
             "moe_experts": 2 * one["moe_experts"] + N_DECODE * step["moe_experts"],
             "mamba_step": N_DECODE * step["mamba_step"],
+            "moe_route": N_DECODE * step["moe_route"],
+            "moe_combine": N_DECODE * step["moe_combine"],
             "ssd_scan": scans, **quant, "ssd_scan_tc": scans if tc else 0,
             "ssd_scan_simt": 0 if tc else scans}
 
@@ -3430,6 +3502,7 @@ def main(argv=None) -> int:
     rows.update(quant_times(gen, dev, quant_checks(gen, dev)))
     rows.update(moe_experts_times(gen, dev))
     rows.update(mamba_step_times(gen, dev))
+    rows.update(moe_route_times(gen, dev))
     print(f"  phase 3 wall {time.perf_counter() - t0:.1f} s", flush=True)
     timed("3b", grad_checks, gen, dev)
     t0 = time.perf_counter()
@@ -3462,11 +3535,14 @@ def main(argv=None) -> int:
                 "quantize_int8": "src/repro/kernels/comm_quant.py:89",
                 "dequantize_int8": "src/repro/kernels/comm_quant.py:112",
                 "moe_experts": "none: the JAX package's MoE is batched products left to XLA",
-                "mamba_step": "none: a decode-step kernel with no TPU counterpart"}
+                "mamba_step": "none: a decode-step kernel with no TPU counterpart",
+                "moe_route": "none: the JAX package routes with plain array code",
+                "moe_combine": "none: the JAX package combines with plain array code"}
     source = {name: f"src/repro_torch/kernels/csrc/{name}.cu" for name in replaces} | {
         "quantize_int8": "src/repro_torch/kernels/csrc/comm_quant.cu",
         "dequantize_int8": "src/repro_torch/kernels/csrc/comm_quant.cu",
-        "moe_experts": "src/repro_torch/kernels/moe_experts.py (torch._grouped_mm)"}
+        "moe_experts": "src/repro_torch/kernels/moe_experts.py (torch._grouped_mm)",
+        "moe_combine": "src/repro_torch/kernels/csrc/moe_route.cu"}
     kernels = [{"name": name, "route": "cuda",
                 "source": source[name],
                 "replaces": replaces[name], "launches": counts[name],

@@ -189,9 +189,9 @@ def sm_count(dev) -> int:
 
 def scratch(dev, n_ints: int, n_floats: int):
     """(int32 counters, fp32 scratch) of CUDA device ``dev``, the one pool
-    of the kernels that need scratch: ``decode_attention``, ``mamba_step``
-    and the SSD scan's tensor-core branch (which carves its bf16 regions
-    from the same bytes, ``ssd_scan.tc_scratch``).  The contract they share:
+    of the kernels that need scratch: ``decode_attention``, ``mamba_step``,
+    ``moe_route`` and the SSD scan's tensor-core branch (which carves its
+    bf16 regions from the same bytes, ``ssd_scan.tc_scratch``).  The contract they share:
     the counters are zero between calls (each kernel's last blocks reset
     the counters they took), and the scratch holds only what one launch
     writes and reads, so calls on one device must run on one stream, one

@@ -32,6 +32,7 @@ from repro_torch.kernels import decode_attention as _dec
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import mamba_step as _mstep
 from repro_torch.kernels import moe_experts as _moe
+from repro_torch.kernels import moe_route as _mroute
 from repro_torch.kernels import rmsnorm as _rms
 from repro_torch.kernels import ssd_scan as _ssd
 from repro_torch.kernels.autograd import KernelFunction, needs_grad
@@ -41,8 +42,8 @@ from repro_torch.obs import trace as _trace
 #: SSD scan (``ssd_scan.tensor_core_branch``) and of the int8 quantize
 #: (``comm_quant.quantize_plan``)
 _COUNTED = ("rmsnorm", "flash_attention", "decode_attention", "ssd_scan", "moe_experts",
-           "mamba_step", "quantize_int8", "dequantize_int8", "ssd_scan_tc", "ssd_scan_simt",
-           "quantize_int8_vec", "quantize_int8_scalar")
+           "mamba_step", "moe_route", "moe_combine", "quantize_int8", "dequantize_int8",
+           "ssd_scan_tc", "ssd_scan_simt", "quantize_int8_vec", "quantize_int8_scalar")
 _forced: str | None = None
 
 
@@ -184,6 +185,29 @@ def moe_experts(x, w_gate, w_up, w_down, offs, *, impl: str | None = None):
     if not _use_kernel(x, impl):
         return _moe.moe_experts_plain(x, w_gate, w_up, w_down, offs)
     return _moe.moe_experts_cuda(x, w_gate, w_up, w_down, offs)
+
+
+@_counted
+def moe_route(x, router, k: int, *, impl: str | None = None):
+    """A dropless MoE's routing: x (T, d) the tokens, router (d, E) fp32 ->
+    (rows (T*k, d): x's rows in stable expert order, ends (E,) int32: each
+    expert's end row, w (T*k,): the renormalised top-k probabilities in x's
+    dtype in the same order, order (T*k,) int32: row i is assignment
+    ``order[i] = t*k + j``), for ``moe_experts`` and ``moe_combine``
+    (``kernels/moe_route.py``; T*k up to its ``MAX_ROWS``)."""
+    if not _use_kernel(x, impl):
+        return _mroute.moe_route_plain(x, router, k)
+    return _mroute.moe_route_cuda(x, router, k)
+
+
+@_counted
+def moe_combine(out, w, order, k: int, shared=None, *, impl: str | None = None):
+    """out (T*k, d) the experts' rows in ``moe_route``'s order, w and order
+    as it left them, shared (T, d) the shared expert's output or None ->
+    (T, d): each token's k rows weighted and summed, plus ``shared``."""
+    if not _use_kernel(out, impl):
+        return _mroute.moe_combine_plain(out, w, order, k, shared)
+    return _mroute.moe_combine_cuda(out, w, order, k, shared)
 
 
 @_counted

@@ -10,7 +10,10 @@ per-step oracle of the JAX package's ``ref.ssd_scan``: the same function,
 without a Python loop over every position on the card.  ``quantize_int8``
 and ``dequantize_int8`` are the per-row int8 codec of ``comm_quant``.
 ``moe_experts``, the grouped SwiGLU of a dropless MoE
-(``kernels/moe_experts.py``), has no counterpart in the JAX package, nor has
+(``kernels/moe_experts.py``), has no counterpart in the JAX package, nor have
+``moe_route`` and ``moe_combine``, the routing and combine around it
+(``kernels/moe_route.py``: the chain ``models/moe.py`` ran before the kernels,
+in the same order and roundings, which it still runs for a prefill), nor has
 ``mamba_step``, a Mamba-2 layer's decode step between its input projections
 and ``wo`` (``kernels/mamba_step.py``): it is the composition the model ran
 before the kernel, in the same order and roundings (``mamba_mix_step``, which
@@ -71,6 +74,41 @@ def moe_experts(x, w_gate, w_up, w_down, offs):
             out[start:end] = h @ w_down[e].to(x.dtype)
         start = end
     return out
+
+
+def moe_route(x, router, k: int):
+    """A dropless MoE's routing of x (T, d) by the router (d, E): the fp32
+    softmax of x @ router, then :func:`moe_dispatch`."""
+    probs = torch.softmax(x[None].float() @ router.float(), dim=-1)
+    return moe_dispatch(x, probs[0], k)
+
+
+def moe_dispatch(x, probs, k: int):
+    """x (T, d) and its router probabilities (T, E) fp32 -> (rows (T*k, d):
+    x's rows in stable expert order, ends (E,) int32: each expert's end row,
+    w (T*k,): the top-k probabilities over their sum, in x's dtype, in the
+    same order, order (T*k,) int32: the sort, row i being assignment
+    ``order[i] = t*k + j``)."""
+    T, E = probs.shape
+    top_p, top_e = torch.topk(probs, k, dim=-1)
+    top_p = top_p / top_p.sum(dim=-1, keepdim=True)
+    flat_e = top_e.reshape(T * k)
+    order = torch.argsort(flat_e, stable=True)
+    # each expert's end row, on the device (a search, not a count read back)
+    ends = torch.searchsorted(flat_e[order], torch.arange(E, device=x.device), right=True)
+    rows = x.index_select(0, order // k)
+    w = top_p.reshape(T * k)[order].to(x.dtype)
+    return rows, ends.to(torch.int32), w, order.to(torch.int32)
+
+
+def moe_combine(out, w, order, k: int, shared=None):
+    """The experts' output rows out (T*k, d), each weighted by its w and put
+    back with its token through ``order`` (:func:`moe_dispatch`), summed over
+    k in out's dtype, plus ``shared`` (T, d) where given -> (T, d)."""
+    contrib = out * w[:, None]
+    y = contrib.new_empty(contrib.shape).index_copy_(0, order.long(), contrib)
+    y = y.reshape(-1, k, out.shape[-1]).sum(dim=1)
+    return y if shared is None else y + shared
 
 
 def rmsnorm(x, scale, eps: float = 1e-6):

@@ -208,7 +208,7 @@ def _apply_layer(cfg, p: dict, h, *, positions, mode: str, cache: dict | None, p
         if stages is not None:
             t = time.perf_counter_ns()
         if "moe" in p:
-            y, aux = apply_moe(cfg, p["moe"], apply_norm(cfg, p["ffn_norm"], h))
+            y, aux = apply_moe(cfg, p["moe"], apply_norm(cfg, p["ffn_norm"], h), mode)
         else:
             y = apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["ffn_norm"], h))
         h = h + _branch(cfg, y)

@@ -29,12 +29,21 @@ Two steps are written so that they give the same result on every call:
 
 The dropless dispatch (granite-4.0-h) has no capacity and drops nothing:
 the T*k assignments, stably sorted by expert, are the rows of one (T*k, d)
-buffer, each expert's end row found on the device by a search of the sorted
-ids, and ``ops.moe_experts`` computes each expert's SwiGLU over its rows
-only.  Nothing is read back to the host, so a decode step through it can be
-captured as a CUDA graph, and a B-1 decode reads its k experts' weights
-alone.  The combine is the capacity path's: each output weighted by its
-renormalised probability, put back in (token, j) order, summed over k.
+buffer, each expert's end row found on the device, and ``ops.moe_experts``
+computes each expert's SwiGLU over its rows only.  Nothing is read back to
+the host, so a decode step through it can be captured as a CUDA graph, and a
+B-1 decode reads its k experts' weights alone.  The combine is the capacity
+path's: each output weighted by its renormalised probability, put back in
+(token, j) order, summed over k, then the shared expert's output added.  A
+call whose T*k assignments the routing kernel sorts (``moe_route.MAX_ROWS``:
+every decode) routes and combines through ``ops.moe_route`` and
+``ops.moe_combine``, one launch each on the card; a larger call (a prefill)
+runs their plain versions, a chain of small ops whose cost its tokens share.
+
+The Switch aux loss is computed in training (``mode`` "train") and where no
+``mode`` is given; a prefill or a decode returns 0.0 in its place, since no
+caller reads it.  Training and mode-less calls take the chain: the kernels
+keep no router probabilities for the aux loss and have no backward.
 
 In a traced call (``obs.trace``) each MoE layer books three stages inside
 the layer's ``ffn``: ``route`` (the router, the top-k and the dispatch into
@@ -50,6 +59,8 @@ import torch.nn.functional as F
 
 from repro_torch.distributed.dtensor import is_dtensor
 from repro_torch.kernels import ops
+from repro_torch.kernels import ref
+from repro_torch.kernels.moe_route import MAX_ROWS as ROUTE_MAX_ROWS
 from repro_torch.models.mlp import apply_mlp, mlp_specs
 from repro_torch.models.params import ParamSpec
 from repro_torch.obs import trace as _trace
@@ -111,16 +122,15 @@ def route(cfg, xg, router):
     return probs, top_p / top_p.sum(dim=-1, keepdim=True), top_e
 
 
-def apply_moe(cfg, p, x):
-    """x: (B, S, d) -> (out (B, S, d), aux_loss fp32 scalar)."""
+def apply_moe(cfg, p, x, mode: str | None = None):
+    """x: (B, S, d) -> (out (B, S, d), aux_loss fp32 scalar, 0.0 unless
+    ``mode`` is "train" or None)."""
     with torch.profiler.record_function(MOE_SPAN):
         stages = _trace.CURRENT.stages
         t = time.perf_counter_ns() if stages is not None else 0
-        y, aux, xg, t = (_apply_dropless if cfg.moe.dropless else _apply_moe)(cfg, p, x, stages, t)
-        if cfg.moe.dense_residual:
-            y = y + apply_mlp(cfg, p["dense"], xg)
-            if stages is not None:
-                stages.stage("shared", t)
+        with_aux = mode in (None, "train")
+        y, aux = (_apply_dropless if cfg.moe.dropless else _apply_moe)(cfg, p, x, stages, t,
+                                                                      with_aux)
         return y.reshape(x.shape), aux
 
 
@@ -133,44 +143,46 @@ def _aux_loss(cfg, probs, counts, n_assign: int):
     return m.router_aux_weight * m.num_experts * torch.sum(fe * me)
 
 
-def _apply_dropless(cfg, p, x, stages, t):
-    """The dropless dispatch over all B*S tokens -> (the routed experts'
-    sum (B*S, d), aux, the tokens (B*S, d), the next stage's start)."""
-    m = cfg.moe
-    d = x.shape[-1]
-    E, k = m.num_experts, m.top_k
-    xt = x.reshape(1, -1, d)
-    T = xt.shape[1]
-    dev = x.device
+def _shared(cfg, p, xt, stages, t):
+    """The shared expert's output on the tokens xt, or None where the config
+    has none -> (it, the next stage's start)."""
+    if not cfg.moe.dense_residual:
+        return None, t
+    y = apply_mlp(cfg, p["dense"], xt)
+    return y, (stages.stage("shared", t) if stages is not None else t)
 
-    probs, top_p, top_e = route(cfg, xt, p["router"])
-    flat_e = top_e.reshape(T * k)
-    sort_idx = torch.argsort(flat_e, stable=True)
-    # each expert's end row in the sorted buffer, on the device (a search,
-    # not a count read back)
-    ends = torch.searchsorted(flat_e[sort_idx], torch.arange(E, device=dev), right=True)
-    counts = torch.diff(ends, prepend=ends.new_zeros(1))
-    aux = _aux_loss(cfg, probs, counts[None], T * k)
-    rows = xt[0].index_select(0, sort_idx // k)                  # (T*k, d)
+
+def _apply_dropless(cfg, p, x, stages, t, with_aux):
+    """The dropless dispatch over all B*S tokens -> (the routed experts' sum
+    plus the shared expert's output (B*S, d), aux)."""
+    k = cfg.moe.top_k
+    xt = x.reshape(-1, x.shape[-1])
+    T = xt.shape[0]
+    aux = 0.0
+    if with_aux or T * k > ROUTE_MAX_ROWS:
+        probs = torch.softmax(xt[None].float() @ p["router"].float(), dim=-1)
+        rows, ends, w, order = ref.moe_dispatch(xt, probs[0], k)
+        if with_aux:
+            counts = torch.diff(ends, prepend=ends.new_zeros(1))
+            aux = _aux_loss(cfg, probs, counts[None], T * k)
+        combine = ref.moe_combine
+    else:
+        rows, ends, w, order = ops.moe_route(xt, p["router"], k)
+        combine = ops.moe_combine
     if stages is not None:
         t = stages.stage("route", t)
-
+    shared, t = _shared(cfg, p, xt, stages, t)
     dt = x.dtype
-    out = ops.moe_experts(rows, p["w_gate"].to(dt), p["w_up"].to(dt), p["w_down"].to(dt),
-                          ends.to(torch.int32))
-    w = top_p.reshape(T * k)[sort_idx].to(dt)
-    contrib = out * w[:, None]
-    # back to (token, j) order: each sorted row to its own assignment's place
-    y = contrib.new_empty(contrib.shape).index_copy_(0, sort_idx, contrib)
-    y = y.reshape(T, k, d).sum(dim=1)
+    out = ops.moe_experts(rows, p["w_gate"].to(dt), p["w_up"].to(dt), p["w_down"].to(dt), ends)
+    y = combine(out, w, order, k, shared)
     if stages is not None:
-        t = stages.stage("experts", t)
-    return y, aux, xt[0], t
+        stages.stage("experts", t)
+    return y, aux
 
 
-def _apply_moe(cfg, p, x, stages, t):
-    """The capacity-bounded dispatch -> (the routed experts' sum (G, T, d),
-    aux, the tokens (G, T, d), the next stage's start)."""
+def _apply_moe(cfg, p, x, stages, t, with_aux):
+    """The capacity-bounded dispatch -> (the routed experts' sum plus the
+    shared expert's output (G, T, d), aux)."""
     m = cfg.moe
     B, S, d = x.shape
     E, k = m.num_experts, m.top_k
@@ -186,7 +198,7 @@ def _apply_moe(cfg, p, x, stages, t):
     # (unlike bincount) reads no value back to the host
     counts = F.one_hot(flat_e, E).sum(dim=1)                     # (G,E)
     # load-balancing aux loss (Switch), computed over ALL tokens
-    aux = _aux_loss(cfg, probs, counts, G * T * k)
+    aux = _aux_loss(cfg, probs, counts, G * T * k) if with_aux else 0.0
 
     # --- capacity-bounded sort dispatch --------------------------------------
     C = _capacity(cfg, T)
@@ -225,4 +237,5 @@ def _apply_moe(cfg, p, x, stages, t):
     y = contrib.gather(1, inv[..., None].expand(-1, -1, d)).reshape(G, T, k, d).sum(dim=2)
     if stages is not None:
         t = stages.stage("experts", t)
-    return y, aux, xg, t
+    shared, _ = _shared(cfg, p, xg, stages, t)
+    return (y if shared is None else y + shared), aux

@@ -29,7 +29,8 @@ STEPS = 64
 #: the hand-written kernels a decode step launches, by the counter's key and
 #: the kernel's name in a device trace
 STEP_KERNELS = {"rmsnorm": "rmsnorm_kernel", "decode_attention": "decode_split_kernel",
-                "mamba_step": "mamba_step_kernel"}
+                "mamba_step": "mamba_step_kernel", "moe_route": "moe_route_kernel",
+                "moe_combine": "moe_combine_kernel"}
 #: the grouped products of ``ops.moe_experts`` in a device trace, three a call
 GROUPED_GEMM = "GroupProblemShape"
 #: idle seconds at each end of a traced window: the profiler keeps only the
@@ -214,6 +215,7 @@ def test_replays_launch_the_kernels_of_eager_steps(model):
     dropless = cfg.moe is not None and cfg.moe.dropless
     assert eager["grouped_gemm"] == 3 * counted["moe_experts"] == (
         3 * steps * cfg.num_layers if dropless else 0)
+    assert eager["moe_route"] == eager["moe_combine"] == counted["moe_experts"]
     ops.reset_launch_counts()
     logits, replayed = _decode(lib, params, state, logits)         # the capture
     assert not replayed

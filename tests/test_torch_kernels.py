@@ -166,9 +166,9 @@ def test_cpu_tensors_take_the_plain_versions_and_count_nothing():
     assert torch.equal(ops.dequantize_int8(qi, sc), ref.dequantize_int8(*ref.quantize_int8(x)))
     assert ops.launch_counts() == {"rmsnorm": 0, "flash_attention": 0, "decode_attention": 0,
                                    "ssd_scan": 0, "moe_experts": 0, "quantize_int8": 0,
-                                   "dequantize_int8": 0, "mamba_step": 0, "ssd_scan_tc": 0,
-                                   "ssd_scan_simt": 0, "quantize_int8_vec": 0,
-                                   "quantize_int8_scalar": 0}
+                                   "dequantize_int8": 0, "mamba_step": 0, "moe_route": 0,
+                                   "moe_combine": 0, "ssd_scan_tc": 0, "ssd_scan_simt": 0,
+                                   "quantize_int8_vec": 0, "quantize_int8_scalar": 0}
 
 
 @pytest.mark.parametrize("rc, capturing, names, counted", [
